@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """North-star benchmark: CG on a 10M-row 3-D Laplacian, one chip.
 
-BASELINE.json's headline config (there scoped to a 2-host v5e slice; here
-the single-chip measurement the driver's hardware can support — the
-multi-chip path is validated functionally on the virtual CPU mesh by
-tests/test_parallel.py and __graft_entry__.dryrun_multichip).
+The single-device measurement; the multi-device path is validated on the
+virtual CPU mesh by tests/test_parallel.py and
+__graft_entry__.dryrun_multichip, and on four GPUs by
+``chip_smoke.py --chips 4``.
 
 Prints one JSON line per measurement:
   - spmv_gnnz_s: DIA SpMV throughput at 10M rows
@@ -28,10 +28,7 @@ def laplacian_3d_coo_padded_strides(nx, stride):
     strides (1, stride, stride^2), so the DIA offsets (+-1, +-stride,
     +-stride^2) are multiples of the 128-lane width when ``stride`` is.
 
-    Measured outcome (BENCHMARKS.md): alignment padding did NOT recover the
-    large-n throughput cliff (the bottleneck is per-diagonal x re-reads
-    once x exceeds VMEM, not lane alignment) — 10.1 vs 14.8 Gnnz/s at
-    nx=216.  Kept as an option for studying layout effects; default off.
+    Kept as an option for studying layout effects; default off.
     """
     n_pad = ((nx - 1) * stride + (nx - 1)) * stride + nx  # last index + 1
     i = np.arange(nx, dtype=np.int64)
@@ -69,8 +66,7 @@ def main():
     ap.add_argument("--nrhs", type=int, default=8)
     ap.add_argument(
         "--pad-strides", type=int, default=0,
-        help="pad grid index strides to this (0 = natural strides; padding "
-        "measured slower at 10M rows, see BENCHMARKS.md)",
+        help="pad grid index strides to this (0 = natural strides)",
     )
     ap.add_argument(
         "--symmetric", action="store_true",
@@ -121,27 +117,13 @@ def main():
 
         return f
 
-    t = timeit_loop(mk, A, x, K1=20, K2=100)
+    t = timeit_loop(mk, A, x, K=100)
     spmv_val = round(nnz / t / 1e9, 2) if t > 1e-9 else None
     print(json.dumps({"metric": "spmv_gnnz_s", "value": spmv_val, "n": n}))
 
-    # multi-vector SpMM (the capability the reference lacks, README.md:83).
-    # Production block solvers keep their panels RESIDENT in the
-    # interleaved sublane layout (panels folded into sublanes so every
-    # grid step moves contiguous blocks — benchmarks/spmm_probe4.py
-    # measured panel-separate layouts 2.3x slower from DMA chunking);
-    # this loop measures that form when the kernel engages.
-    interleaved = getattr(A, "interleaved_profitable", lambda k: False)(
-        args.nrhs
-    )
-    if interleaved:
-        from sigma_tpu.ops.spmv_pallas import interleave_panels
-
-        X = interleave_panels(jnp.ones((args.nrhs, n), jnp.float32), n)
-        apply = lambda A, V: A.matmat_interleaved(V)
-    else:
-        X = jnp.ones((n, args.nrhs), jnp.float32)
-        apply = lambda A, V: A.matmat(V)
+    # multi-vector SpMM (the capability the reference lacks, README.md:83)
+    X = jnp.ones((n, args.nrhs), jnp.float32)
+    apply = lambda A, V: A.matmat(V)
 
     def mkm(K):
         @jax.jit
@@ -153,7 +135,7 @@ def main():
 
         return f
 
-    t = timeit_loop(mkm, A, X, K1=5, K2=25)
+    t = timeit_loop(mkm, A, X, K=25)
     # a slope at the clamp floor means the workload is smaller than launch
     # jitter (tiny --nx smoke runs): report null rather than a fiction
     spmm_val = round(args.nrhs * nnz / t / 1e9, 2) if t > 1e-9 else None
@@ -161,7 +143,6 @@ def main():
         "metric": "spmm_gnnz_s",
         "value": spmm_val,
         "nrhs": args.nrhs,
-        "layout": "interleaved" if interleaved else "cols",
     }))
 
     # CG solve: manufactured RHS, fixed iteration budget, f32

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Measure the FMG claim (VERDICT r03 item 8): where does the
+"""Measure the FMG claim: where does the
 full-multigrid initial guess pay?
 
 Pseudo-timestepping on the 10.1M-row 3-D Poisson north star: a sequence
@@ -39,10 +39,6 @@ def main():
     ap.add_argument("--smoother", default="chebyshev")
     args = ap.parse_args()
 
-    from sigma_tpu.utils.util import enable_transparent_hugepages, enable_warm_heap
-
-    enable_transparent_hugepages()
-    enable_warm_heap()
 
     import jax
     import jax.numpy as jnp

@@ -1,20 +1,18 @@
 #!/usr/bin/env python
-"""ILDU-on-TPU verdict by measurement (VERDICT r02 #4).
+"""ILDU routing verdict by measurement.
 
 The reference's flagship preconditioner is ILDU(0)/IC(0) with sequential
 triangular sweeps (ldu_solvers.f90:160-243).  Here it exists as
 level-scheduled sweeps (solvers/ildu.py) — correct and distributed-tested,
-but each level is a gather/scatter step, i.e. the ~0.1 Gnnz/s path.  This
-script measures, on one chip at >= 1M rows of 3-D Poisson:
+but each level is a latency-bound gather/scatter step.  This script
+measures, on one device at >= 1M rows of 3-D Poisson:
 
   - ILDU(0) setup wall and PER-APPLY wall (forward+D+backward sweeps),
   - the same for Jacobi, Chebyshev and structured-GMG preconditioners,
   - full PCG: iterations and warm wall for each.
 
-The recorded outcome routes users: on TPU, polynomial/multigrid
-preconditioning dominates level-scheduled ILDU at scale (the sweeps'
-latency-bound level loop cannot stream), so ILDU is the CPU/small-n
-and distributed-block-local tool.  Prints one JSON line per row.
+The outcome routes users between polynomial/multigrid preconditioning
+and level-scheduled ILDU at scale.  Prints one JSON line per row.
 """
 
 import argparse
@@ -39,13 +37,6 @@ def main():
     args = ap.parse_args()
     skip = set(filter(None, args.skip.split(",")))
 
-    try:
-        from sigma_tpu.utils.util import enable_transparent_hugepages, enable_warm_heap
-
-        enable_transparent_hugepages()
-        enable_warm_heap()
-    except Exception:
-        pass
 
     import jax
     import jax.numpy as jnp
@@ -75,7 +66,7 @@ def main():
 
             return f
 
-        return timeit_loop(mk, M, b, K1=3, K2=15)
+        return timeit_loop(mk, M, b, K=15)
 
     def run_pcg(name, M, A=A_dia, extra=None, flexible=False):
         solve = jax.jit(

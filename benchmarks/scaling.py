@@ -39,9 +39,8 @@ def main():
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--virtual", type=int, default=0,
                     help="force N virtual CPU devices (0 = use real devices)")
-    # multi-host plumbing (BASELINE.json's 2-host point): launch one
-    # process per host with identical args plus --process-id; see
-    # BENCHMARKS.md "Scaling harness" for the exact two-host commands
+    # multi-host plumbing: launch one process per host with identical
+    # args plus --coordinator/--num-processes/--process-id
     ap.add_argument("--sym", action="store_true",
                     help="with --pruned: symmetric-storage shards "
                          "(upper triangle + mirror-spill ppermute)")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Multi-RHS SpMM on the unstructured north star (VERDICT r03 item 4):
+"""Multi-RHS SpMM on the unstructured north star:
 symmetric chunked SpMM with the uncapped mirror-scratch kernel, and the
 pruned SpMM, at several RHS counts.  One JSON line per measurement.
 """
@@ -23,10 +23,6 @@ def main():
     ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args()
 
-    from sigma_tpu.utils.util import enable_transparent_hugepages, enable_warm_heap
-
-    enable_transparent_hugepages()
-    enable_warm_heap()
 
     import jax
     import jax.numpy as jnp
@@ -66,8 +62,8 @@ def main():
         return mk
 
     x = jnp.ones((n,), jnp.float32)
-    t_sym1 = timeit_loop(loop(lambda M, v: M.matvec(v)), Ds, x, K1=30, K2=200)
-    t_pr1 = timeit_loop(loop(lambda M, v: M.matvec(v)), P, x, K1=30, K2=200)
+    t_sym1 = timeit_loop(loop(lambda M, v: M.matvec(v)), Ds, x, K=200)
+    t_pr1 = timeit_loop(loop(lambda M, v: M.matvec(v)), P, x, K=200)
     print(json.dumps({
         "metric": "spmv_baselines",
         "sym_ms": round(t_sym1 * 1e3, 3),
@@ -88,7 +84,7 @@ def main():
             try:
                 t = timeit_loop(
                     loop(lambda M, V: M.matmat_rhs_major(V)), Dsym, XT,
-                    K1=20, K2=120,
+                    K=120,
                 )
                 print(json.dumps({
                     "metric": "sym_spmm", "k": k, "dtype": dname,
@@ -105,7 +101,7 @@ def main():
             try:
                 t = timeit_loop(
                     loop(lambda M, V: M.matmat_rhs_major(V)), Ppr, XT,
-                    K1=20, K2=120,
+                    K=120,
                 )
                 print(json.dumps({
                     "metric": "pruned_spmm", "k": k, "dtype": dname,

@@ -8,8 +8,8 @@ Operator: A = L + beta * (W - W^T) on the mesh edges (L the shifted
 Laplacian, W the upper-edge weights) — diagonally dominant, genuinely
 nonsymmetric.  Solvers: BiCG-stab plain vs pruned-pair-GMG
 preconditioned (the closed-form Galerkin coarsening is value-agnostic,
-so it coarsens nonsymmetric operators directly — same as the structured
-GMG result in BENCHMARKS.md 'Nonsymmetric north star').
+so it coarsens nonsymmetric operators directly, as structured GMG does
+on advection-diffusion).
 One JSON line per configuration.
 """
 
@@ -34,10 +34,6 @@ def main():
     ap.add_argument("--iters", type=int, default=500)
     args = ap.parse_args()
 
-    from sigma_tpu.utils.util import enable_transparent_hugepages, enable_warm_heap
-
-    enable_transparent_hugepages()
-    enable_warm_heap()
 
     import jax
     import jax.numpy as jnp
@@ -104,8 +100,8 @@ def main():
             A_, bb, tol=0.0, rtol=1e-6, maxiter=args.iters
         )
     )
-    # M as an ARGUMENT: a captured hierarchy lands in the compile
-    # request body (HTTP 413 at 1M+ rows)
+    # M as an ARGUMENT: a captured hierarchy is embedded in the program
+    # as constants
     solve_pc = jax.jit(
         lambda A_, bb, M_: bicgstab_solve(
             A_, bb, tol=0.0, rtol=1e-6, maxiter=args.iters, M=M_
@@ -136,7 +132,7 @@ def main():
         }))
 
     # FGMRES with an inner fixed-iteration BiCG-stab preconditioner —
-    # the flexible composition the library lacked (VERDICT r04 §5)
+    # the flexible composition for nonsymmetric systems
     solve_fg = jax.jit(
         lambda A_, bb: fgmres_solve(
             A_, bb, tol=0.0, rtol=1e-6, restart=32, maxiter=args.iters,

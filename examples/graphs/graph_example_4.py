@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Greedy coloring and the multicolor ordering (after graph_example_4.f90;
 permutations.f90:83,167) — the seam that parallelizes triangular sweeps
-and Metropolis dynamics on TPU."""
+and Metropolis dynamics."""
 
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""TPU-native multigrid on a structured grid (no reference analogue; the
+"""Gather-free multigrid on a structured grid (no reference analogue; the
 multilevel intent of /root/reference/src/solver/README.md realized
 gather-free): a 3-D Dirichlet Poisson problem in DIA form, solved with
 plain CG, then CG preconditioned by structured pair-aggregation
@@ -64,8 +64,7 @@ def main():
           f"{len(M.levels)} levels")
 
     # 2x2x2 cube aggregates: 3x shallower hierarchy, similar quality —
-    # the production setting at the 10M-row north star (2.3x wall vs
-    # plain CG on one chip, BENCHMARKS.md)
+    # the setting chip_smoke.py uses at the 10M-row north star
     M8 = structured_pair_amg(A, dims, pairs_per_level=3)
     solve = jax.jit(
         lambda A, b, M: cg_solve(A, b, tol=0.0, rtol=1e-10, M=M, maxiter=2000)

@@ -1,16 +1,14 @@
 #!/usr/bin/env python
 """The general-sparsity recipe end to end: an unstructured (irregular,
-arbitrarily labeled) SPD matrix solved through the TPU-native pipeline
+arbitrarily labeled) SPD matrix solved through the structural pipeline
 
     RCM reorder -> banded DIA (-> symmetric upper-only storage) -> CG
 
-Per-element gathers run ~0.1 Gnnz/s on TPU, so general sparsity is
-served STRUCTURALLY: `to_banded_dia` reorders into a band and stores
-every band diagonal densely; wide bands stream through the chunked
-blocked kernel at HBM rate (BENCHMARKS.md "Unstructured-sparsity north
-star": 91% of spec HBM, 81x the gather floor at 1M rows).
+General sparsity is served STRUCTURALLY: `to_banded_dia` reorders into
+a band and stores every band diagonal densely, so the SpMV needs no
+index array; wide bands apply as a scan over diagonals.
 
-Small here so it runs anywhere; crank --height/--width on a TPU.
+Small here so it runs anywhere; crank --height/--width on a GPU.
 """
 
 import argparse
@@ -52,8 +50,6 @@ def main():
         f"occupancy {band_occupancy(A):.4f} -> "
         f"{A.graph.nnz / (n * D.graph.n_diags):.4f}"
     )
-    # audit which kernel will run (None = the pallas fast path engages)
-    print("why_not_pallas:", D.why_not_pallas() or "fast path engages")
 
     # solve in the permuted frame: b_p[p] = b, x = x_p[p]
     xstar = np.sin(np.arange(n) * 0.01).astype(np.float32)

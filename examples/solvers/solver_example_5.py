@@ -1,7 +1,6 @@
 #!/usr/bin/env python
-"""The unstructured-at-scale recipe (round 4; no reference analogue —
-this is where the TPU framework exceeds the reference's serial CSR
-solve): any-pattern matrix -> RCM -> pruned block-DIA -> CG with the
+"""The unstructured-at-scale recipe (no reference analogue — this is
+where the framework goes beyond the reference's serial CSR solve): any-pattern matrix -> RCM -> pruned block-DIA -> CG with the
 pair-AMG multilevel preconditioner, all in the permuted frame.
 """
 

@@ -13,8 +13,7 @@ solver examples build toward): an irregular SPD mesh through
 5. FGMRES with an inner Krylov solve as the preconditioner.
 
 At the real north star (10M rows) the same calls pack 1.0 GB where full
-DIA would need 9.9 GB and solve in 0.36 s — see
-benchmarks/unstructured_pruned.py and BENCHMARKS.md round 5.
+DIA would need 9.9 GB — see benchmarks/unstructured_pruned.py.
 """
 
 import os, sys

@@ -1,7 +1,7 @@
 // sigma_tpu native host core.
 //
-// The reference (danshapero/sigma) is a fully compiled library; in the TPU
-// build the device path is XLA-compiled, and this file is the compiled
+// The reference (danshapero/sigma) is a fully compiled library; here the
+// device path is XLA-compiled, and this file is the compiled
 // runtime for the *host* side: topology freezing (COO -> sorted/deduped
 // CSR via counting sort, cf. the two-pass build of cs_graphs.f90:109-197),
 // reordering (BFS / greedy coloring, cf. permutations.f90), and the
@@ -158,7 +158,7 @@ void rcm_order(i64 n, const i64* indptr, const i64* indices, i64* perm) {
 // with priority = -W1*degree_current + W2*distance, promoting
 // preactive/active neighbors.  Wavefront ~ LOCAL bandwidth, which is
 // exactly the pruned layout's per-row-tile active-diagonal count
-// (VERDICT r04 item 2's occupancy lever).  Status: 0 inactive,
+// (the pruned layout's occupancy lever).  Status: 0 inactive,
 // 1 preactive, 2 active, 3 numbered.
 void sloan_order(i64 n, const i64* indptr, const i64* indices, i64* perm) {
     auto bfs_dist = [&](i64 start, std::vector<i64>& dist) -> i64 {

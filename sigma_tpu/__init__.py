@@ -1,9 +1,9 @@
-"""sigma_tpu — a TPU-native sparse linear-algebra framework.
+"""sigma_tpu — a sparse linear-algebra framework for accelerators, in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the SiGMA
+A from-scratch JAX/XLA re-design of the capabilities of the SiGMA
 Fortran library (graphs as first-class sparsity objects; matrices = graph +
 values; operator algebra; Krylov solvers; Lanczos eigensolvers), built
-TPU-first: static-shape frozen topologies, whole-array kernels, jit-compiled
+accelerator-first: static-shape frozen topologies, whole-array kernels, jit-compiled
 ``lax.while_loop`` solver iterations, and mesh-sharded distribution.
 
 This umbrella module re-exports the public API, mirroring

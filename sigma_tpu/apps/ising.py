@@ -6,7 +6,7 @@ spins, flip with probability ``min(1, exp(-beta * dE))``), reporting running
 magnetization each sweep.  The reference file even carries a commented-out
 ``greedy_coloring`` call (:124-126) — the parallelization it never did.
 
-TPU-native redesign: that coloring IS the algorithm here.  Sites of one
+Data-parallel redesign: that coloring IS the algorithm here.  Sites of one
 color class are mutually non-adjacent, so updating them *simultaneously*
 is a valid Metropolis sweep.  One sweep =
 

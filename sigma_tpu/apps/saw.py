@@ -4,7 +4,7 @@ Reference: ``/root/reference/apps/self_avoiding_walk.f90`` — repeated trials
 of: random start vertex; repeatedly move to a uniformly-chosen unvisited
 neighbor until stuck; histogram the walk lengths (:118-160).
 
-TPU-native redesign: the trials are embarrassingly parallel, so ALL walks
+Data-parallel redesign: the trials are embarrassingly parallel, so ALL walks
 run at once — walker state is a ``(W, n)`` visited matrix plus ``(W,)``
 current vertices, a step is one batched ELL-row gather + masked categorical
 draw, and the whole ensemble advances in a single ``lax.while_loop`` until

@@ -8,12 +8,13 @@ every step applies ``B%solve`` at :140, so B must carry an attached solver),
 via LAPACK ``dstev`` :174,202, then Ritz vectors V*Q with sign normalization
 :178-180).
 
-TPU-native redesign
--------------------
+Data-parallel redesign
+----------------------
 The iteration is a ``lax.fori_loop`` over a static step count with a dense
 ``(n, k+1)`` basis carried in the loop state; full re-orthogonalization is a
 *matmul* ``w -= V (V^T w)`` (two passes — "twice is enough") rather than a
-scalar loop over previous vectors, which is exactly the MXU-friendly form.
+scalar loop over previous vectors, run at ``Precision.HIGHEST`` (a TF32
+projection loses orthogonality).
 Unfilled basis columns are zero, so the projector automatically restricts to
 the filled prefix — no dynamic slicing.  The small (k x k) tridiagonal
 eigenproblem runs as a dense ``jnp.linalg.eigh`` (the ``dstev`` analogue).
@@ -31,7 +32,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from sigma_tpu.operators.linear_operator import LinearOperator
-from sigma_tpu.utils.dtypes import default_real_dtype
+from sigma_tpu.utils.dtypes import default_real_dtype, hmatmul
 
 __all__ = [
     "LanczosResult",
@@ -101,7 +102,7 @@ def _lanczos_loop(matvec_operand, k, v_start, reorth_passes):
         # full re-orthogonalization as matmuls (eigensolver.f90:74-76);
         # zero columns of Vb act as a no-op in the projector
         for _ in range(reorth_passes):
-            w = w - Vb @ (Vb.T @ w)
+            w = w - hmatmul(Vb, hmatmul(Vb.T, w))
         b = jnp.linalg.norm(w)
         # breakdown threshold scaled by the RUNNING recurrence magnitude
         # |a| + beta_prev, NOT max(|a|, 1): an O(1) floor mistakes every
@@ -127,7 +128,7 @@ def _lanczos_loop(matvec_operand, k, v_start, reorth_passes):
                 jax.random.fold_in(restart_key, j), (n,), dtype
             )
             for _ in range(reorth_passes):
-                fresh = fresh - Vb @ (Vb.T @ fresh)
+                fresh = fresh - hmatmul(Vb, hmatmul(Vb.T, fresh))
             return fresh / jnp.maximum(
                 jnp.linalg.norm(fresh), _BREAKDOWN
             )
@@ -194,7 +195,7 @@ def _generalized_lanczos_loop(A, B, k, v_start, reorth_passes):
         w = w - a * v
         # full B-re-orthogonalization: w -= V (V^T B w)
         for _ in range(reorth_passes):
-            w = w - Vb @ (Vb.T @ B.matvec(w))
+            w = w - hmatmul(Vb, hmatmul(Vb.T, B.matvec(w)))
         Bw = B.matvec(w)
         b = jnp.sqrt(jnp.maximum(b_norm_sq(w, Bw), 0.0))
         # scale-free breakdown threshold (see the standard loop): the
@@ -216,7 +217,7 @@ def _generalized_lanczos_loop(A, B, k, v_start, reorth_passes):
                 jax.random.fold_in(restart_key, j), (n,), dtype
             )
             for _ in range(reorth_passes):
-                fresh = fresh - Vb @ (Vb.T @ B.matvec(fresh))
+                fresh = fresh - hmatmul(Vb, hmatmul(Vb.T, B.matvec(fresh)))
             fb = jnp.sqrt(
                 jnp.maximum(b_norm_sq(fresh, B.matvec(fresh)), 0.0)
             )
@@ -268,7 +269,7 @@ def _ritz(result: LanczosResult):
     (``eigensolve:160``: dstev -> V*Q, sign fix at :178-180)."""
     T = result.tridiagonal()
     lam, Q = jnp.linalg.eigh(T)  # dstev analogue; k x k dense, host-scale
-    V = result.V @ Q
+    V = hmatmul(result.V, Q)
     # sign normalization: largest-|.| component of each Ritz vector positive
     idx = jnp.argmax(jnp.abs(V), axis=0)
     signs = jnp.sign(V[idx, jnp.arange(V.shape[1])])

@@ -3,7 +3,7 @@ eigensolver.
 
 No reference analogue (the reference has only Lanczos) — included because
 it is the *multi-vector* eigensolver: every iteration is one SpMM over the
-whole (n, m) block plus small dense Rayleigh-Ritz algebra on the MXU, and
+whole (n, m) block plus small dense Rayleigh-Ritz algebra, and
 it accepts any preconditioner from the solver layer (AMG, Chebyshev,
 ILDU...), tying the framework's pieces together.  Finds the lowest m
 eigenpairs of symmetric A (or the pencil via preconditioning).
@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from sigma_tpu.operators.linear_operator import LinearOperator
+from sigma_tpu.utils.dtypes import hmatmul
 
 __all__ = ["lobpcg", "LOBPCGResult"]
 
@@ -46,9 +47,9 @@ def _lobpcg_loop(A, M, X0, m, maxiter, tol):
 
     def rayleigh_ritz(S):
         AS = A.matmat(S)
-        G = S.T @ AS
+        G = hmatmul(S.T, AS)
         lam, C = jnp.linalg.eigh((G + G.T) / 2)
-        return lam[:m], S @ C[:, :m], AS @ C[:, :m]
+        return lam[:m], hmatmul(S, C[:, :m]), hmatmul(AS, C[:, :m])
 
     X = _orthonormalize(X0)
     lam, X, AX = rayleigh_ritz(X)
@@ -62,7 +63,7 @@ def _lobpcg_loop(A, M, X0, m, maxiter, tol):
         # subspace: current block, preconditioned residuals, prior direction
         S = _orthonormalize(jnp.concatenate([X, W, P], axis=1))
         lam_new, X_new, AX_new = rayleigh_ritz(S)
-        P = X_new - X @ (X.T @ X_new)
+        P = X_new - hmatmul(X, hmatmul(X.T, X_new))
         return X_new, AX_new, lam_new, P, k + 1, resn
 
     def cond(state):
@@ -92,8 +93,8 @@ def lobpcg(
     """Lowest-m eigenpairs of symmetric A; ``M`` is an (approximate)
     inverse preconditioner applied blockwise to the residuals.
 
-    ROUTING (measured, BENCHMARKS.md rounds 4-5): in f32 at north-star
-    scale LOBPCG stalls near 1e-2 residuals even GMG-preconditioned —
+    ROUTING: in f32 at north-star scale LOBPCG stalls near 1e-2
+    residuals even GMG-preconditioned —
     for accurate extreme eigenpairs of huge SPD operators use
     :func:`sigma_tpu.eigen.shift_invert_lanczos` (host-f64 recurrence
     + f32 ladder solves: 1e-12 residuals at 1M rows) or

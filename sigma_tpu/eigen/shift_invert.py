@@ -1,19 +1,16 @@
 """Shift-invert Lanczos with mixed-precision ladder solves: f64-grade
 extreme eigenpairs of huge SPD operators whose fast kernels are f32.
 
-The at-scale recipe behind the 1M-row unstructured eigenpair result
-(BENCHMARKS.md round 5: lowest three eigenvalues at 1e-12 Ritz
-residuals): a HOST-side float64 Lanczos recurrence on
+The at-scale recipe for accurate extreme eigenpairs of large SPD
+operators: a HOST-side float64 Lanczos recurrence on
 ``B = (A - sigma)^{-1}`` where every application of ``B`` is an
 iterative-refinement ladder — float64 residual sweeps through a host
 CSR matvec (scipy), float32 Krylov inner solves on the device kernels
-(optionally preconditioned).  Nothing float64 ever reaches the TPU
-(``jax_enable_x64`` faults this stack's worker inside large jitted
-programs — CLAUDE.md round-5 gotcha), yet the recurrence, the
-reorthogonalization, and the final Rayleigh-Ritz are all genuinely
-double precision.
+(optionally preconditioned).  Nothing float64 reaches the device, yet
+the recurrence, the reorthogonalization, and the final Rayleigh-Ritz are
+all genuinely double precision.
 
-Shift guidance (measured, BENCHMARKS.md round 5): against a
+Shift guidance: against a
 near-continuum low spectrum, plain ``sigma = 0`` contracts at only
 ~0.81/step and an aggressive ``sigma ~ 0.99 lambda_1`` breaks the f32
 inner solves (kappa(M^-1(A - sigma)) ~ 1/(1 - sigma/lambda_1)); the
@@ -21,8 +18,8 @@ working point is ``sigma ~ 0.9 lambda_1`` from any safe lower bound
 (e.g. an f32 Rayleigh estimate, accurate to residual^2/gap).
 
 Re-designs ``/root/reference/src/eigensolver.f90:95-140`` (generalized
-Lanczos with a per-step solve, all-f64 LAPACK at toy sizes) as the
-TPU-native precision split.
+Lanczos with a per-step solve, all-f64 LAPACK at toy sizes) as a
+host-f64 / device-f32 precision split.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 SiGMA builds sparsity incrementally in a mutable list-of-lists graph
 (``/root/reference/src/graph/formats/ll_graphs.f90``: O(1) ``add_edge``) or a
 coordinate graph (``coo_graphs.f90``) and then *converts* to a compressed
-format for compute.  On TPU the same two-stage idiom applies even more
-strongly: sparsity is assembled on host with cheap amortized mutation, then
+format for compute.  On an accelerator the same two-stage idiom applies
+even more strongly: sparsity is assembled on host with cheap amortized mutation, then
 frozen into static-shape device arrays (see :mod:`sigma_tpu.graph.graph`) that
 XLA can compile against.
 

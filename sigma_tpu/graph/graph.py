@@ -18,8 +18,8 @@ Format lineage (reference file → this module):
   read garbage; padded matrix values are zero so arithmetic is unaffected)
 * ``coo_graphs.f90``      → :class:`COOGraph`
 * (absent in reference; README.md:84 "There is as yet no block matrix
-  format") → :class:`BSRGraph`, block compressed rows for MXU-friendly
-  block-sparse kernels.
+  format") → :class:`BSRGraph`, block compressed rows for block-sparse
+  matmul kernels.
 
 Mutation (``add_edge``/``delete_edge``) is *not* on the frozen types: in the
 reference every compressed-format mutation is already a full rebuild
@@ -115,9 +115,8 @@ def host_csr(rows, cols, n: int, *carry):
 
 
 def _pad1d(arr: np.ndarray, total: int, fill) -> np.ndarray:
-    # np.empty + two region writes, NOT np.full + overwrite: on this
-    # page-fault-bound host every extra full-array touch costs a fresh
-    # fault pass (CLAUDE.md "host memory is page-fault-bound")
+    # np.empty + two region writes, NOT np.full + overwrite: every
+    # extra full-array touch of a fresh buffer costs a page-fault pass
     out = np.empty(total, dtype=arr.dtype)
     out[: arr.size] = arr
     out[arr.size :] = fill
@@ -448,7 +447,7 @@ class COOGraph(Graph):
 class ELLGraph(Graph):
     """ELLPACK topology: dense ``(n, max_d)`` neighbor array.
 
-    The closest reference format to a TPU layout ("especially suited to SIMD
+    The closest reference format to a device layout ("especially suited to SIMD
     architectures", ``README.md:71-73``; ``ellpack_graphs.f90``).  Row ``i``'s
     slots beyond ``degrees[i]`` duplicate its *first* real neighbor (or 0 for
     empty rows) so gathers are branch-free, exactly the padding rule of
@@ -531,7 +530,7 @@ class BSRGraph(Graph):
     which slots are true edges so element-level graph semantics (degree,
     neighbors, exact sparsity) survive blocking.  Matrices built on this
     store explicit zeros at masked-off slots, making SpMV/SpMM dense
-    block-matmuls that map straight onto the MXU."""
+    block-matmuls."""
 
     indptr: jax.Array  # (nb_rows+1,) int32 over block rows
     indices: jax.Array  # (nnzb_pad,) int32 block-column indices
@@ -642,7 +641,7 @@ class BSRGraph(Graph):
 class DIAGraph(Graph):
     """Diagonal (DIA) topology: the sparsity is a set of matrix diagonals.
 
-    Purpose-built for TPU: stencil operators (the reference's solver-test
+    Purpose-built for accelerators: stencil operators (the reference's solver-test
     Laplacians, the 3-D north-star operator) have a handful of constant
     offsets, and a diagonal layout makes SpMV completely **gather-free** —
     each diagonal contributes ``val_d * x[i + offset_d]``, a statically
@@ -670,8 +669,8 @@ class DIAGraph(Graph):
     @property
     def stride(self) -> int:
         """Row stride of the value layout: n rounded up to a whole number of
-        128-lane vectors, so each diagonal is a clean (stride/128, 128) tile
-        grid on TPU."""
+        128-element rows, so each diagonal is a clean (stride/128, 128)
+        grid."""
         return -(-self.shape[0] // 128) * 128
 
     @classmethod

@@ -2,8 +2,8 @@
 
 Mirrors ``/root/reference/src/graph/permutations.f90``:
 ``breadth_first_search`` (:22, Cuthill-McKee-style level order),
-``greedy_coloring`` (:83) and ``greedy_color_ordering`` (:167).  In the TPU
-build these are pure numpy build-time utilities; their product — multicolor
+``greedy_coloring`` (:83) and ``greedy_color_ordering`` (:167).  Here
+these are pure numpy build-time utilities; their product — multicolor
 orderings — is what turns the strictly sequential incomplete-factorization
 triangular sweeps (``ldu_solvers.f90:208-253``) into batched per-color
 parallel updates (see :mod:`sigma_tpu.solvers.ildu`).

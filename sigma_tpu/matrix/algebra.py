@@ -8,8 +8,8 @@ edges, ``add_value`` each contribution), dispatching on the
 ``is_get_row_fast`` / ``is_get_column_fast`` capability flags
 (``sparse_matrix_algebra.f90:178-187``).
 
-TPU-native redesign
--------------------
+Whole-array redesign
+--------------------
 Per-edge cursor traversal is an anti-pattern under XLA.  Here both phases are
 whole-array:
 

@@ -7,8 +7,8 @@ format-strategy wrapper around a single leaf.  Its block-wise matvec over
 vector slices (":1076-1129", annotated "This loop can be parallelized") is
 the reference's designated distribution seam.
 
-TPU-native redesign
--------------------
+Pytree redesign
+---------------
 :class:`BlockMatrix` is an immutable registered pytree: a (br x bc) grid of
 optional leaf operators plus static row/col partition offsets.  matvec
 splits x at column offsets, applies every present block, and concatenates

@@ -7,16 +7,14 @@ Reference lineage:
   column scatter; the CSR/CSC transpose-kernel duality at :148-149,192-193)
   → :class:`CSRMatrix` / :class:`CSCMatrix`
 * ``ellpack_matrices.f90`` (fixed-trip-count matvec :640-665 — the
-  reference's closest analogue of a TPU kernel) → :class:`ELLMatrix`
+  reference's closest analogue of a device kernel) → :class:`ELLMatrix`
 * ``coo`` value layout → :class:`COOMatrix`
 * block format (absent in reference, README.md:84) → :class:`BSRMatrix`,
   dense (bh, bw) blocks whose SpMV/SpMM are batched small matmuls.
 
 All kernels here are whole-array XLA programs (gather + multiply +
-``segment_sum`` scatter) — no cursors, no per-edge control flow.  Pallas
-TPU kernels for the hot paths live in :mod:`sigma_tpu.ops` and are selected
-automatically when profitable; these jnp forms are the portable reference
-semantics and the CPU/testing path.
+``segment_sum`` scatter, or shifted windows for DIA) — no cursors, no
+per-edge control flow.
 
 Padding is always value-0 at structurally padded slots, so no masking is
 ever needed in arithmetic.
@@ -52,10 +50,9 @@ def _segment_sum(vals, ids, n):
 
 def zero_padded_window(x, o: int, length: int, total: int):
     """Zero-padded window x[o : o + length] padded to ``total`` — built by
-    concatenation (not one shared padded buffer): XLA fuses the concats
-    into the consuming FMA, whereas a shared materialized pad becomes an
-    extra full pass over HBM (measured 3x slower).  Shared by the DIA
-    kernels and the distributed DIA layout."""
+    concatenation (not one shared padded buffer), so XLA can fuse the
+    concats into the consuming FMA instead of materializing a padded copy
+    of x.  Shared by the DIA applies and the distributed DIA layout."""
     m = x.shape[0]
     lo, hi = max(0, o), min(m, length + o)
     if hi <= lo:
@@ -296,7 +293,7 @@ class BSRMatrix(SparseMatrix):
     """Block CSR matrix with dense (bh, bw) value blocks.
 
     SpMV = batched block matmul + block-row segment sum; SpMM contracts each
-    block against a (bw, k) slab — MXU-shaped work.  This is the format the
+    block against a (bw, k) slab.  This is the format the
     reference lists as a missing critical optimization (``README.md:84``).
     """
 
@@ -356,12 +353,10 @@ class BSRMatrix(SparseMatrix):
         return y.reshape(-1)[: g.shape[0]]
 
     def grouped(self, group: int = 8):
-        """Kernel-native grouped layout (host-side regroup): block-level
-        DMA-gather SpMV/SpMM on TPU via the scalar-prefetch pallas kernel
-        (:class:`sigma_tpu.ops.bsr_pallas.GroupedBSR`) — the fast
-        production path for block matrices; this XLA gather form stays the
-        portable reference semantics."""
-        from sigma_tpu.ops.bsr_pallas import GroupedBSR
+        """Grouped layout (host-side regroup,
+        :class:`sigma_tpu.matrix.grouped_bsr.GroupedBSR`): each group of
+        ``group`` blocks of a block row applies as one wide matmul."""
+        from sigma_tpu.matrix.grouped_bsr import GroupedBSR
 
         return GroupedBSR.from_bsr(self, group=group)
 
@@ -408,13 +403,24 @@ class BSRMatrix(SparseMatrix):
         return Y.reshape(-1, k)[: g.shape[1]]
 
 
-def _band_reach(offs) -> int:
-    """One-sided band reach max(|offset|) of a non-empty offset tuple —
-    THE shared expression of every pallas halo-fit gate (review dedup;
-    an inline copy once dropped the empty-offsets guard).  Callers must
-    handle ``offs == ()`` before calling (the zero-diagonal matrix is a
-    routing decision, not a reach)."""
-    return max(max(max(offs), 0), -min(min(offs), 0))
+def _padded_frame(x, offsets, length: int):
+    """(xp, off_arr): zero-padded frame such that the window for
+    diagonal d is ``xp[off_arr[d] : off_arr[d] + length]`` — shared by
+    every scan path (O(1) program size for wide bands)."""
+    o_min = min(min(offsets), 0)
+    o_max = max(max(offsets), 0)
+    left = -o_min
+    L = length + (o_max - o_min)
+    right = L - left - x.shape[0]
+    xp = jnp.concatenate(
+        [
+            jnp.zeros((left,) + x.shape[1:], x.dtype),
+            x,
+            jnp.zeros((max(right, 0),) + x.shape[1:], x.dtype),
+        ]
+    )
+    off_arr = jnp.asarray(np.asarray(offsets) - o_min, dtype=jnp.int32)
+    return xp, off_arr
 
 
 @jax.tree_util.register_dataclass
@@ -422,37 +428,22 @@ def _band_reach(offs) -> int:
 class DIAMatrix(SparseMatrix):
     """Diagonal-format matrix: ``data[d, i]`` = A[i, i + offset_d].
 
-    The TPU-native stencil format (no reference analogue; see
+    The stencil format (no reference analogue; see
     :class:`sigma_tpu.graph.graph.DIAGraph`).  SpMV is **gather-free**:
-    pad x once, then one statically-shifted contiguous window
-    multiply-add per diagonal — no index array is even stored, so the
-    HBM traffic per nonzero is value + x-read only, below what any
-    indexed format can reach.  Out-of-range slots hold value 0.
-    Diagonal-format matrix: ``data[d, i]`` = A[i, i + offset_d].
+    one statically-shifted contiguous window multiply-add per diagonal —
+    no index array is even stored, so the memory traffic per nonzero is
+    value + x-read only, below what any indexed format can reach.
+    Out-of-range slots hold value 0.
 
-    The TPU-native stencil format (no reference analogue; see
-    :class:`sigma_tpu.graph.graph.DIAGraph`).  SpMV is **gather-free**:
-    pad x once, then one statically-shifted contiguous window
-    multiply-add per diagonal — no index array is even stored, so the
-    HBM traffic per nonzero is value + x-read only, below what any
-    indexed format can reach.  Out-of-range slots hold value 0.
-    
-
-    DTYPE CONVENTION: every DIA apply computes in the OPERAND's
-    dtype (matrix values cast to x.dtype, in-VMEM on the pallas
-    paths) — the mixed-precision contract the bf16-value /
-    f32-vector kernels are built on.  This differs from the
-    gather formats (CSR/ELL promote by numpy rules); apply an
-    f64 operand if f64 accumulation is wanted."""
+    DTYPE CONVENTION: every DIA apply computes in the OPERAND's dtype
+    (matrix values cast to x.dtype) — the mixed-precision contract that
+    bf16-valued operators on f32 vectors rely on.  This differs from the
+    gather formats (CSR/ELL promote by numpy rules); apply an f64
+    operand if f64 accumulation is wanted."""
 
     graph: "DIAGraph"
-    data: jax.Array  # (n_diags, stride/128, 128) — the kernel-native tile
-    # layout.  Storing the tiles 3-D (not (n_diags, stride)) matters: a
-    # 2-D jit ARGUMENT gets a (sublane, 128)-tiled device layout that the
-    # pallas custom call cannot consume, and XLA inserts the relayout
-    # AFTER loop-invariant code motion — i.e. INSIDE every solver
-    # iteration (measured 2.03 -> 0.55 ms per 10M-row SpMV).  Flat element
-    # order is unchanged, so flat-position machinery (set_values/entries/
+    data: jax.Array  # (n_diags, stride/128, 128); flat element order is
+    # (diagonal, row), so flat-position machinery (set_values/entries/
     # edge_positions) is layout-agnostic; use :attr:`data2d` for
     # per-diagonal row views.
 
@@ -483,72 +474,14 @@ class DIAMatrix(SparseMatrix):
     # wide bands, e.g. RCM-reordered general matrices -> banded DIA)
     _SCAN_THRESHOLD: ClassVar[int] = 24
 
-    # Minimum size for the blocked pallas kernel.  Measured on v5e (one
-    # session, 2.1M-row 7-pt Laplacian): blocked 325 / VMEM-resident pallas
-    # 113 / XLA windows 47 Gnnz/s — the blocked kernel's O(1) x traffic per
-    # tile beats both the full-x-operand pallas refetch and XLA's
-    # per-diagonal window reads at every size tried, so it is the default
-    # whenever the tile grid is nontrivial (and mandatory past the ~3.5M-row
-    # XLA VMEM cliff, BENCHMARKS.md).
-    _PALLAS_MIN_ELEMS: ClassVar[int] = 65_536
-
-    def _pallas_path(self, x):
-        """The pallas blocked kernel, when profitable and supported: TPU
-        backend, low-precision dtypes, x past the XLA VMEM cliff.  Bands
-        too wide to tile in one VMEM working set (RCM-banded general
-        matrices, :func:`sigma_tpu.matrix.banded.to_banded_dia`) route to
-        the CHUNKED wrapper — still gather-free, diagonal values streamed
-        exactly once (else None -> XLA paths)."""
-        n, m = self.shape
-        if m < self._PALLAS_MIN_ELEMS or x.ndim != 1:
-            return None
-        if x.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        if self.data.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        try:
-            if jax.default_backend() != "tpu":
-                return None
-        except RuntimeError:
-            return None
-        from sigma_tpu.ops.spmv_pallas import (
-            _LANES,
-            _full_tile_pick,
-            chunk_plan,
-            dia_spmv_pallas_blocked,
-            dia_spmv_pallas_chunked,
-        )
-
-        offs = self.graph.offsets
-        reach = _band_reach(offs)
-        pick = _full_tile_pick(
-            self.graph.stride // _LANES,
-            reach // _LANES + 2,
-            len(offs),
-            self.data.dtype.itemsize,
-        )
-        if pick is not None:
-            return dia_spmv_pallas_blocked(self.data, x, offs, n, m)
-        if (
-            chunk_plan(
-                offs, self.graph.stride // _LANES, self.data.dtype.itemsize
-            )
-            is not None
-        ):
-            return dia_spmv_pallas_chunked(self.data, x, offs, n, m)
-        return None
-
     def matvec(self, x):
-        """Gather-free SpMV at HBM speed-of-light: per diagonal, a shifted
-        contiguous window FMA in (stride/128, 128) tile layout (measured
-        ~92% of v5e HBM bandwidth; see bench.py)."""
+        """Gather-free SpMV: per diagonal, a shifted contiguous window
+        FMA, unrolled so XLA fuses every diagonal into one elementwise
+        pass (one read of each value, x and y)."""
         n, m = self.shape
         offs = self.graph.offsets
         if not offs:
             return jnp.zeros((n,), dtype=x.dtype)
-        y = self._pallas_path(x)
-        if y is not None:
-            return y
         if len(offs) > self._SCAN_THRESHOLD:
             return self._matvec_scan(x)
         s = self.graph.stride
@@ -559,25 +492,10 @@ class DIAMatrix(SparseMatrix):
         return y2.reshape(-1)[:n]
 
     def _matvec_scan(self, x):
-        """Many-diagonal path: one padded x buffer + a lax.scan whose step
-        dynamic-slices the window for its offset — O(1) program size."""
-        n, m = self.shape
-        offs = self.graph.offsets
+        """Many-diagonal path: a lax.scan whose step dynamic-slices the
+        padded x for its offset — O(1) program size."""
         s = self.graph.stride
-        o_min = min(min(offs), 0)
-        o_max = max(max(offs), 0)
-        left = -o_min
-        L = s + (o_max - o_min)
-        right = L - left - m
-        xp = jnp.concatenate(
-            [
-                jnp.zeros((left,), x.dtype),
-                x,
-                jnp.zeros((max(right, 0),), x.dtype),
-            ]
-        )
-
-        off_arr = jnp.asarray(np.asarray(offs) - o_min, dtype=jnp.int32)
+        xp, off_arr = _padded_frame(x, self.graph.offsets, s)
 
         def step(y, inp):
             start, drow = inp
@@ -587,105 +505,16 @@ class DIAMatrix(SparseMatrix):
         y, _ = lax.scan(
             step, jnp.zeros((s,), x.dtype), (off_arr, self.data2d)
         )
-        return y[:n]
-
-    def _padded_frame(self, x, length):
-        """(xp, off_arr): zero-padded frame such that the window for
-        diagonal d is ``xp[off_arr[d] : off_arr[d] + length]`` — shared by
-        every scan path (O(1) program size for wide bands)."""
-        offs = self.graph.offsets
-        o_min = min(min(offs), 0)
-        o_max = max(max(offs), 0)
-        left = -o_min
-        L = length + (o_max - o_min)
-        right = L - left - x.shape[0]
-        xp = jnp.concatenate(
-            [
-                jnp.zeros((left,) + x.shape[1:], x.dtype),
-                x,
-                jnp.zeros((max(right, 0),) + x.shape[1:], x.dtype),
-            ]
-        )
-        off_arr = jnp.asarray(
-            np.asarray(offs) - o_min, dtype=jnp.int32
-        )
-        return xp, off_arr
-
-    def _transposed_data(self):
-        """(dataT, offsetsT) of A^T in DIA layout: A^T's diagonal -o holds
-        ``data[o]`` shifted by o (``dataT[-o, i] = data[o, i - o]``) — a
-        static per-diagonal shift, so the transpose layout is pure data
-        movement.  Inside a solver ``while_loop`` the computation is
-        loop-invariant and XLA hoists it: one materialization per solve."""
-        n, m = self.shape
-        offs = self.graph.offsets
-        sT = -(-m // 128) * 128
-        order = sorted(range(len(offs)), key=lambda d: -offs[d])
-        rows = [
-            zero_padded_window(self.data2d[d], -offs[d], sT, sT) for d in order
-        ]
-        dataT = jnp.stack(rows).reshape(len(order), sT // 128, 128)
-        offsT = tuple(-offs[d] for d in order)
-        return dataT, offsT
-
-    def _pallas_rmatvec_path(self, x):
-        """Blocked pallas transpose apply (square matrices): materialize
-        the transpose layout and reuse the matvec kernel."""
-        n, m = self.shape
-        if m < self._PALLAS_MIN_ELEMS or x.ndim != 1:
-            return None
-        if x.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        if self.data.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        try:
-            if jax.default_backend() != "tpu":
-                return None
-        except RuntimeError:
-            return None
-        from sigma_tpu.ops.spmv_pallas import (
-            _LANES,
-            _full_tile_pick,
-            chunk_plan,
-            dia_spmv_pallas_blocked,
-            dia_spmv_pallas_chunked,
-        )
-
-        offs = self.graph.offsets
-        reach = _band_reach(offs)
-        pick = _full_tile_pick(
-            self.graph.stride // _LANES,
-            reach // _LANES + 2,
-            len(offs),
-            self.data.dtype.itemsize,
-        )
-        if pick is not None:
-            dataT, offsT = self._transposed_data()
-            return dia_spmv_pallas_blocked(dataT, x, offsT, m, n)
-        if (
-            chunk_plan(
-                offs, self.graph.stride // _LANES, self.data.dtype.itemsize
-            )
-            is not None
-        ):
-            dataT, offsT = self._transposed_data()
-            return dia_spmv_pallas_chunked(dataT, x, offsT, m, n)
-        return None
+        return y[: self.shape[0]]
 
     def rmatvec(self, x):
         """Transpose: y[i+o] += data[d, i] * x[i] — same windows, with the
         product shifted by -o into the output frame (scan form for wide
-        bands, like matvec).  On TPU past the VMEM cliff the transpose
-        DIA layout is materialized (loop-invariant, hoisted by XLA) and
-        fed to the blocked pallas kernel."""
+        bands, like matvec)."""
         n, m = self.shape
         offs = self.graph.offsets
         if not offs:
             return jnp.zeros((m,), dtype=x.dtype)
-        if n == m:
-            dataT_path = self._pallas_rmatvec_path(x)
-            if dataT_path is not None:
-                return dataT_path
         if len(offs) > self._SCAN_THRESHOLD:
             return self._rmatvec_scan(x)
         s = -(-m // 128) * 128
@@ -719,369 +548,21 @@ class DIAMatrix(SparseMatrix):
         # frame position t holds y[t + o_min]
         return lax.dynamic_slice(acc, (left,), (m,))
 
-    def _pallas_matmat_path(self, X):
-        """Blocked pallas SpMM when profitable (TPU, low precision, small
-        RHS count, VMEM-fitting band) — data fetched once for all RHS."""
-        n, m = self.shape
-        k = X.shape[1]
-        if m < self._PALLAS_MIN_ELEMS or k < 1:
-            return None
-        if k > 16:
-            # wide RHS blocks (e.g. large LOBPCG bases): on wide bands
-            # the grouped two-level kernel streams the values ONCE for
-            # all k; otherwise split into <=16-wide panels so each pass
-            # fits the kernel's VMEM working set (the data then streams
-            # once per pass — still far above the XLA fallback)
-            YT = self._pallas_spmm_grouped(X.T)
-            if YT is not None:
-                return YT.T
-            parts = []
-            for j0 in range(0, k, 16):
-                Yj = self._pallas_matmat_path(X[:, j0 : j0 + 16])
-                if Yj is None:
-                    return None
-                parts.append(Yj)
-            return jnp.concatenate(parts, axis=1)
-        if X.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        if self.data.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        try:
-            if jax.default_backend() != "tpu":
-                return None
-        except RuntimeError:
-            return None
-        from sigma_tpu.ops.spmv_pallas import (
-            _LANES,
-            _spmm_tile_pick,
-            chunk_plan,
-            dia_spmm_pallas_blocked,
-            dia_spmm_pallas_chunked,
-        )
-
-        offs = self.graph.offsets
-        reach = _band_reach(offs)
-        S = self.graph.stride // _LANES
-        pick = _spmm_tile_pick(
-            S,
-            reach // _LANES + 2,
-            len(offs),
-            self.data.dtype.itemsize,
-            k=k,
-        )
-        if pick is not None:
-            return dia_spmm_pallas_blocked(self.data, X, offs, n, m)
-        if chunk_plan(offs, S, self.data.dtype.itemsize, k=k) is not None:
-            return dia_spmm_pallas_chunked(self.data, X, offs, n, m)
-        return None
-
     def matmat_rhs_major(self, XT):
-        """RHS-major SpMM: XT (k, m) -> (k, n) with NO layout transposes —
-        the fast multi-RHS entry for loops that keep block vectors
-        RHS-major (the (n,k)<->(k,n) transposes around :meth:`matmat`
-        cost a measurable fraction of SpMM time at 10M rows)."""
-        n, m = self.shape
-        k = XT.shape[0]
-        use_pallas = (
-            m >= self._PALLAS_MIN_ELEMS
-            and 1 <= k <= 16
-            and XT.dtype in (jnp.float32, jnp.bfloat16)
-            and self.data.dtype in (jnp.float32, jnp.bfloat16)
-        )
-        if use_pallas:
-            try:
-                use_pallas = jax.default_backend() == "tpu"
-            except RuntimeError:
-                use_pallas = False
-        if use_pallas:
-            from sigma_tpu.ops.spmv_pallas import (
-                _LANES,
-                _spmm_tile_pick,
-                chunk_plan,
-                dia_spmm_rhs_major,
-                dia_spmm_rhs_major_chunked,
-            )
-
-            offs = self.graph.offsets
-            if not offs:  # zero-diagonal matrix: A @ X = 0 (the guard
-                return jnp.zeros((k, n), XT.dtype)  # every sibling has)
-            reach = _band_reach(offs)
-            S = self.graph.stride // _LANES
-            pick = _spmm_tile_pick(
-                S,
-                reach // _LANES + 2,
-                len(offs),
-                self.data.dtype.itemsize,
-                k=k,
-            )
-            if pick is not None:
-                return dia_spmm_rhs_major(self.data, XT, offs, n, m)
-            if (
-                chunk_plan(offs, S, self.data.dtype.itemsize, k=k)
-                is not None
-            ):
-                return dia_spmm_rhs_major_chunked(self.data, XT, offs, n, m)
-        if k > 16:
-            Y = self._pallas_spmm_grouped(XT)
-            if Y is not None:
-                return Y
+        """RHS-major SpMM: XT (k, m) -> (k, n)."""
         return self.matmat(XT.T).T
 
-    def _pallas_spmm_grouped(self, XT):
-        """Two-level grouped-interleaved SpMM for wide RHS blocks
-        (k > 16): XT (k, m) -> (k, n), or None when the 16-wide
-        auto-split is the better route.
-
-        :func:`~sigma_tpu.ops.spmv_pallas.dia_spmm_grouped` streams the
-        diagonal values ONCE for all k (its outer grid axis revisits
-        each data tile), where the auto-split re-streams the whole band
-        per 16-wide pass — but the grouped layout pays entry/exit
-        transposes (~4k n-words).  Profitable exactly when the saved
-        value re-streams beat the transposes:
-        ``(passes - 1) * D * itemsize > 16 * k`` bytes per row — i.e.
-        wide bands (RCM-banded unstructured matrices), never the 7-pt
-        stencil."""
-        n, m = self.shape
-        k = XT.shape[0]
-        if k <= 16 or m < self._PALLAS_MIN_ELEMS:
-            return None
-        if XT.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        if self.data.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        try:
-            if jax.default_backend() != "tpu":
-                return None
-        except RuntimeError:
-            return None
-        offs = self.graph.offsets
-        if not offs:
-            return None
-        D = len(offs)
-        isz = self.data.dtype.itemsize
-        P = -(-k // 16)
-        if (P - 1) * D * isz <= 16 * k:
-            return None
-        from sigma_tpu.ops.spmv_pallas import (
-            _LANES,
-            _spmm_tile_pick,
-            chunk_plan,
-            deinterleave_panels_grouped,
-            dia_spmm_grouped,
-            dia_spmm_grouped_chunked,
-            interleave_panels_grouped,
-        )
-
-        reach = _band_reach(offs)
-        S = self.graph.stride // _LANES
-        hrows = reach // _LANES + 2
-        for kb in (16, 8, 4):
-            if chunk_plan(offs, S, isz, k=kb) is not None:
-                break
-        else:
-            return None
-        XG = interleave_panels_grouped(XT, kb, m)
-        if _spmm_tile_pick(S, hrows, D, isz, k=kb) is not None:
-            YG = dia_spmm_grouped(self.data, XG, offs, n, m)
-        else:
-            YG = dia_spmm_grouped_chunked(self.data, XG, offs, n, m)
-        return deinterleave_panels_grouped(YG, kb, k, n)
-
-    def interleaved_profitable(self, k):
-        """True when :meth:`matmat_interleaved` will hit the pallas kernel
-        for k panels (TPU backend, low precision, band fits VMEM) — block
-        solvers use this to decide whether to keep their panels resident
-        in the interleaved layout for the whole loop."""
-        n, m = self.shape
-        offs = self.graph.offsets
-        if not offs or m < self._PALLAS_MIN_ELEMS or not (1 <= k <= 16):
-            return False
-        if self.data.dtype not in (jnp.float32, jnp.bfloat16):
-            return False
-        try:
-            if jax.default_backend() != "tpu":
-                return False
-        except RuntimeError:
-            return False
-        from sigma_tpu.ops.spmv_pallas import _LANES, _spmm_tile_pick
-
-        reach = _band_reach(offs)
-        return (
-            _spmm_tile_pick(
-                self.graph.stride // _LANES,
-                reach // _LANES + 2,
-                len(offs),
-                self.data.dtype.itemsize,
-                k=k,
-            )
-            is not None
-        )
-
-    def why_not_pallas(self, op: str = "matvec", k: int = 1, dtype=None):
-        """Explain why the pallas fast path would NOT engage for ``op``
-        ('matvec' | 'rmatvec' | 'matmat' | 'interleaved'), or return None
-        when it will.
-
-        The fast paths gate SILENTLY (a preconditioner apply inside a
-        jitted solver cannot raise or warn), so this probe is the
-        documented way to audit a configuration before a long run::
-
-            reason = A.why_not_pallas("interleaved", k=32)
-            # -> "k=32 right-hand sides: the interleaved-panel kernel
-            #     carries 1..16 panels (VMEM working set); matmat
-            #     auto-splits wider blocks into 16-wide passes"
-
-        (``matmat`` itself auto-splits k > 16 into 16-wide kernel
-        passes, so the probe audits the per-pass width and returns None
-        when those engage.)  ``dtype`` is the operand dtype (defaults to
-        the matrix dtype).
-
-        Routing note: None means the pallas path engages, not that it is
-        the best format.  A wide band at low occupancy (RCM-reordered
-        irregular meshes: ``nnz / (n_diags * n)`` of a few percent)
-        streams mostly structural zeros here — repack with
-        :func:`sigma_tpu.matrix.banded.to_pruned_dia` /
-        :class:`~sigma_tpu.matrix.pruned.PrunedDIAMatrix`, whose kernel
-        streams only the active (row-tile x diagonal) blocks (measured
-        5x at 2.8% occupancy, benchmarks/pruned_sweep.py).
-        """
-        n, m = self.shape
-        xdt = dtype or self.data.dtype
-        if not self.graph.offsets:
-            return "matrix has no stored diagonals (empty operator)"
-        try:
-            backend = jax.default_backend()
-        except RuntimeError:
-            backend = "<uninitialized>"
-        if backend != "tpu":
-            return (
-                f"backend is {backend!r}, not 'tpu': pallas Mosaic kernels "
-                "are TPU-only (XLA paths are used instead)"
-            )
-        if m < self._PALLAS_MIN_ELEMS:
-            return (
-                f"m={m} < {self._PALLAS_MIN_ELEMS}: below this the XLA "
-                "windowed form is VMEM-resident and already at "
-                "speed-of-light; the blocked kernel only pays past it"
-            )
-        for name, dt in (("operand", xdt), ("matrix data", self.data.dtype)):
-            if dt not in (jnp.float32, jnp.bfloat16):
-                return (
-                    f"{name} dtype {dt} is not float32/bfloat16: Mosaic "
-                    "kernels here are low-precision only (f64 runs the "
-                    "XLA scan path)"
-                )
-        if op == "interleaved" and not (1 <= k <= 16):
-            return (
-                f"k={k} right-hand sides: the interleaved-panel kernel "
-                "carries 1..16 panels (VMEM working set); matmat routes "
-                "wide bands through the grouped two-level kernel "
-                "(values streamed once for all k) and auto-splits the "
-                "rest into 16-wide passes"
-            )
-        if op == "matmat" and k > 16:
-            # matmat auto-splits (or runs the grouped two-level kernel
-            # on wide bands); audit the per-pass width
-            k = 16
-        if op == "rmatvec" and n != m:
-            return (
-                f"rectangular shape {self.shape}: the pallas transpose "
-                "apply materializes A^T in DIA layout and reuses the "
-                "matvec kernel, which is implemented for square operators "
-                "only — rectangular rmatvec runs the XLA scan path"
-            )
-        from sigma_tpu.ops.spmv_pallas import (
-            _LANES,
-            _full_tile_pick,
-            _spmm_tile_pick,
-            chunk_plan,
-        )
-
-        offs = self.graph.offsets
-        reach = _band_reach(offs)
-        S = self.graph.stride // _LANES
-        hrows = reach // _LANES + 2
-        isz = self.data.dtype.itemsize
-        if op in ("matmat", "interleaved"):
-            if _spmm_tile_pick(S, hrows, len(offs), isz, k=k) is not None:
-                return None
-            if (
-                op == "matmat"
-                and chunk_plan(offs, S, isz, k=k) is not None
-            ):
-                return None  # the chunked wide-band SpMM engages
-            return (
-                f"band reach {reach} with {len(offs)} diagonals and "
-                f"k={k} panels does not fit the VMEM working set even "
-                "one-diagonal-chunked; reduce k or use per-RHS matvecs"
-                + (
-                    " (interleaved panels are not chunked; matmat is)"
-                    if op == "interleaved"
-                    else ""
-                )
-            )
-        if _full_tile_pick(S, hrows, len(offs), isz) is not None:
-            return None
-        if chunk_plan(offs, S, isz) is not None:
-            return None  # the chunked wide-band path engages
-        return (
-            f"band reach {reach} cannot be tiled even one diagonal at a "
-            "time (pathological bandwidth); the XLA scan path is used"
-        )
-
-    def matmat_interleaved(self, XI, interpret=False):
+    def matmat_interleaved(self, XI):
         """Multi-RHS apply on INTERLEAVED panels: XI is (k*ceil(m/128),
-        128) from :func:`sigma_tpu.ops.spmv_pallas.interleave_panels`;
-        returns the product in the same layout ((k*ceil(n/128), 128)).
-
-        THE fast multi-RHS path on TPU (0.40 vs 0.91 ms/RHS at the 10M-row
-        north star): per grid step the kernel moves five contiguous blocks
-        — panel-separate layouts decompose each block into k strided
-        chunks and run ~2.3x slower regardless of tile shape
-        (benchmarks/spmm_probe4.py).  Keep panels interleaved across the
-        whole solver loop; the entry/exit transposes cost ~2 ms at 10M
-        rows and would cancel the win if paid per product."""
-        n, m = self.shape
-        Sx = -(-m // 128)
-        Sy = -(-n // 128)
-        k = XI.shape[0] // max(Sx, 1)
-        offs = self.graph.offsets
-        use_pallas = offs and (
-            m >= self._PALLAS_MIN_ELEMS
-            and 1 <= k <= 16
-            and XI.dtype in (jnp.float32, jnp.bfloat16)
-            and self.data.dtype in (jnp.float32, jnp.bfloat16)
-        )
-        if use_pallas and not interpret:
-            try:
-                use_pallas = jax.default_backend() == "tpu"
-            except RuntimeError:
-                use_pallas = False
-        if use_pallas:
-            from sigma_tpu.ops.spmv_pallas import (
-                _LANES,
-                _spmm_tile_pick,
-                dia_spmm_interleaved,
-            )
-
-            reach = _band_reach(offs)
-            pick = _spmm_tile_pick(
-                self.graph.stride // _LANES,
-                reach // _LANES + 2,
-                len(offs),
-                self.data.dtype.itemsize,
-                k=k,
-            )
-            if pick is not None:
-                YI = dia_spmm_interleaved(
-                    self.data, XI, offs, n, m, interpret=interpret
-                )
-                return YI[: k * Sy]
-        from sigma_tpu.ops.spmv_pallas import (
+        128) from :func:`sigma_tpu.matrix.panels.interleave_panels`;
+        returns the product in the same layout ((k*ceil(n/128), 128))."""
+        from sigma_tpu.matrix.panels import (
             deinterleave_panels,
             interleave_panels,
         )
 
+        n, m = self.shape
+        k = XI.shape[0] // max(-(-m // 128), 1)
         XT = deinterleave_panels(XI, k, m)
         return interleave_panels(self.matmat(XT.T).T, n)
 
@@ -1091,11 +572,8 @@ class DIAMatrix(SparseMatrix):
         k = X.shape[1]
         if not offs:
             return jnp.zeros((n, k), dtype=X.dtype)
-        Y = self._pallas_matmat_path(X)
-        if Y is not None:
-            return Y
         if len(offs) > self._SCAN_THRESHOLD:
-            Xp, off_arr = self._padded_frame(X, n)
+            Xp, off_arr = _padded_frame(X, offs, n)
 
             def step(Y, inp):
                 start, drow = inp

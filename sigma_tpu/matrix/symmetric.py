@@ -12,18 +12,9 @@ FMA per stored off-diagonal:
         + sum_{o>0}  win(data[o] * x, -o)      (mirror)
 
 so SpMV stays gather-free.  Storage halves (7-pt 3-D Laplacian: 4 stored
-diagonals instead of 7), and on TPU from 64K rows matvec runs the blocked
-symmetric pallas kernel
-(:func:`sigma_tpu.ops.spmv_pallas.dia_sym_spmv_pallas_blocked`): each row
-tile reads small forward/backward x halos plus a backward data halo, all
-delivered by clamped BlockSpec index maps over the unmodified HBM arrays
-— HBM traffic is ~7.5n words vs ~10n for full-storage DIA on the 7-point
-Laplacian, making this the FASTEST SpMV path in the repo: 126.6 vs
-107.8 Gnnz/s sustained (absolute chain timing, operators passed as jit
-arguments) at the 10M-row north star — see BENCHMARKS.md's
-argument-relayout section for why the (D, S, 128) storage layout is
-load-bearing.  (The small-n XLA window path below does pay doubled
-x-window reads; at those sizes x is VMEM-resident anyway.)
+diagonals instead of 7); the unrolled window form reads x twice per
+stored off-diagonal, so whether the halved value stream wins depends on
+how well XLA fuses the two windows.
 
 This is a :class:`LinearOperator` (matvec/matmat/solve compose with every
 Krylov solver and preconditioner), not a mutable SparseMatrix — convert
@@ -50,7 +41,7 @@ __all__ = ["SymmetricDIAMatrix"]
 class SymmetricDIAMatrix(LinearOperator):
     """data[d, i] = A[i, i + offsets[d]] with offsets[d] >= 0 only."""
 
-    data: jax.Array  # (n_upper_diags, stride/128, 128) kernel-native tiles
+    data: jax.Array  # (n_upper_diags, stride/128, 128), like DIAMatrix.data
     offsets: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
     n: int = dataclasses.field(metadata=dict(static=True))
 
@@ -144,115 +135,7 @@ class SymmetricDIAMatrix(LinearOperator):
         return DIAMatrix(graph=g, data=jnp.asarray(data.reshape(len(full), -1, 128)))
 
     # -- compute ----------------------------------------------------------
-    def _pallas_path(self, x):
-        """Blocked symmetric pallas kernel when profitable and supported
-        (TPU backend, low precision, large n, band reach that tiles):
-        streams roughly half the diagonal values of the full-storage
-        kernel (upper diagonals plus a backward halo re-read) —
-        see :func:`sigma_tpu.ops.spmv_pallas.dia_sym_spmv_pallas_blocked`."""
-        n = self.n
-        if n < DIAMatrix._PALLAS_MIN_ELEMS or x.ndim != 1:
-            return None
-        if x.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        if self.data.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        try:
-            if jax.default_backend() != "tpu":
-                return None
-        except RuntimeError:
-            return None
-        from sigma_tpu.ops.spmv_pallas import (
-            _LANES,
-            _sym_tile_pick,
-            chunk_plan,
-            dia_sym_spmv_pallas_blocked,
-            dia_sym_spmv_pallas_chunked,
-        )
-
-        o_max = max(self.offsets)
-        pick = _sym_tile_pick(
-            self.data.shape[1],
-            o_max // _LANES + 2,
-            len(self.offsets),
-            self.data.dtype.itemsize,
-        )
-        if pick is not None:
-            return dia_sym_spmv_pallas_blocked(self.data, x, self.offsets, n)
-        # wide SYMMETRIC bands (RCM-banded SPD matrices): VMEM-sized
-        # slabs of upper diagonals through the same kernel — half the
-        # value stream of the full-storage chunked path
-        if (
-            chunk_plan(
-                self.offsets, self.data.shape[1], self.data.dtype.itemsize,
-                sym=True,
-            )
-            is not None
-        ):
-            return dia_sym_spmv_pallas_chunked(self.data, x, self.offsets, n)
-        return None
-
-    def why_not_pallas(self, op: str = "matvec", k: int = 1, dtype=None):
-        """Audit probe for the silent symmetric fast-path gates — same
-        contract as :meth:`DIAMatrix.why_not_pallas`: a human-readable
-        reason, or None when the pallas path engages."""
-        n = self.n
-        xdt = dtype or self.data.dtype
-        try:
-            backend = jax.default_backend()
-        except RuntimeError:
-            backend = "<uninitialized>"
-        if backend != "tpu":
-            return (
-                f"backend is {backend!r}, not 'tpu': pallas Mosaic kernels "
-                "are TPU-only (XLA paths are used instead)"
-            )
-        if n < DIAMatrix._PALLAS_MIN_ELEMS:
-            return (
-                f"n={n} < {DIAMatrix._PALLAS_MIN_ELEMS}: below this the "
-                "XLA window form is VMEM-resident and already fast"
-            )
-        for name, dt in (("operand", xdt), ("matrix data", self.data.dtype)):
-            if dt not in (jnp.float32, jnp.bfloat16):
-                return (
-                    f"{name} dtype {dt} is not float32/bfloat16: Mosaic "
-                    "kernels here are low-precision only"
-                )
-        from sigma_tpu.ops.spmv_pallas import (
-            _LANES,
-            _sym_spmm_tile_pick,
-            _sym_tile_pick,
-            chunk_plan,
-        )
-
-        S = self.data.shape[1]
-        hrows = max(self.offsets) // _LANES + 2
-        isz = self.data.dtype.itemsize
-        if op in ("matmat", "interleaved"):
-            if not (1 <= k <= 16):
-                return (
-                    f"k={k} panels: the symmetric SpMM kernels carry 1..16"
-                )
-            if _sym_spmm_tile_pick(S, hrows, len(self.offsets), isz, k=k) is None:
-                return (
-                    f"band reach {max(self.offsets)} with "
-                    f"{len(self.offsets)} upper diagonals and k={k} panels "
-                    "does not fit the VMEM working set"
-                )
-            return None
-        if _sym_tile_pick(S, hrows, len(self.offsets), isz) is not None:
-            return None
-        if chunk_plan(self.offsets, S, isz, sym=True) is not None:
-            return None  # the chunked symmetric wide-band path engages
-        return (
-            f"band reach {max(self.offsets)} cannot be tiled even one "
-            "diagonal at a time; the XLA scan path is used"
-        )
-
     def matvec(self, x):
-        y = self._pallas_path(x)
-        if y is not None:
-            return y
         n = self.n
         if len(self.offsets) > DIAMatrix._SCAN_THRESHOLD:
             return self._matvec_scan(x)
@@ -270,7 +153,7 @@ class SymmetricDIAMatrix(LinearOperator):
         return y2.reshape(-1)[:n]
 
     def _matvec_scan(self, x):
-        """Wide-band CPU/f64 path: one lax.scan step per stored upper
+        """Wide-band path: one lax.scan step per stored upper
         diagonal (O(1) program size — the unrolled window form above is a
         compile-size hazard at hundreds of diagonals).  Per step, the
         upper term reads a forward window of the padded x and the mirror
@@ -305,154 +188,28 @@ class SymmetricDIAMatrix(LinearOperator):
 
     rmatvec = matvec  # symmetric
 
-    def _pallas_spmm_path(self, XT):
-        """Symmetric blocked SpMM (RHS-major) when profitable: same gate
-        conditions as the matvec path plus small k."""
-        n = self.n
-        k = XT.shape[0]
-        if n < DIAMatrix._PALLAS_MIN_ELEMS or not (1 <= k <= 16):
-            return None
-        if XT.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        if self.data.dtype not in (jnp.float32, jnp.bfloat16):
-            return None
-        try:
-            if jax.default_backend() != "tpu":
-                return None
-        except RuntimeError:
-            return None
-        from sigma_tpu.ops.spmv_pallas import (
-            _LANES,
-            _sym_spmm_tile_pick,
-            chunk_plan,
-            dia_sym_spmm_rhs_major,
-            dia_sym_spmm_rhs_major_chunked,
-        )
-
-        pick = _sym_spmm_tile_pick(
-            self.data.shape[1],
-            max(self.offsets) // _LANES + 2,
-            len(self.offsets),
-            self.data.dtype.itemsize,
-            k,
-        )
-        if pick is not None:
-            return dia_sym_spmm_rhs_major(self.data, XT, self.offsets, n)
-        if self.data.dtype == jnp.bfloat16 and k > 8:
-            # bisected (round 4): bf16 wide-band slabs at k=16 blow the
-            # Mosaic scoped-VMEM stack at EVERY slab width (the in-VMEM
-            # f32 casts of the k-deep window temporaries) — route to
-            # the XLA fallback / the pruned SpMM instead of crashing
-            # the compiler
-            return None
-        if (
-            chunk_plan(
-                self.offsets, self.data.shape[1],
-                self.data.dtype.itemsize, k=k, sym=True,
-            )
-            is not None
-        ):
-            return dia_sym_spmm_rhs_major_chunked(
-                self.data, XT, self.offsets, n
-            )
-        return None
-
     def matmat_rhs_major(self, XT):
-        """RHS-major multi-RHS apply (k, n) -> (k, n): the transpose-free
-        fast path (see :meth:`DIAMatrix.matmat_rhs_major`).
-
-        WIDE-band routing note (round 4): the symmetric chunked SpMM is
-        Mosaic-scoped-VMEM-capped at 16-24-diagonal slabs (per-diagonal
-        window temporaries stay live across the unrolled loop), which
-        leaves multi-RHS on RCM-banded matrices at ~11-12 true G-eff —
-        for those, repack with :class:`~sigma_tpu.matrix.pruned.
-        PrunedDIAMatrix` (53-64 true G-eff at k=4-16 on the same 1M-row
-        band, BENCHMARKS.md).  This path stays optimal for narrow
-        symmetric stencils where one slab covers the band."""
-        Y = self._pallas_spmm_path(XT)
-        if Y is not None:
-            return Y
+        """RHS-major multi-RHS apply (k, n) -> (k, n)."""
         return self.matmat(XT.T).T
 
-    def interleaved_profitable(self, k):
-        """True when :meth:`matmat_interleaved` will hit the pallas kernel
-        for k panels (see :meth:`DIAMatrix.interleaved_profitable`)."""
-        n = self.n
-        if n < DIAMatrix._PALLAS_MIN_ELEMS or not (1 <= k <= 16):
-            return False
-        if self.data.dtype not in (jnp.float32, jnp.bfloat16):
-            return False
-        try:
-            if jax.default_backend() != "tpu":
-                return False
-        except RuntimeError:
-            return False
-        from sigma_tpu.ops.spmv_pallas import _LANES, _sym_spmm_tile_pick
-
-        return (
-            _sym_spmm_tile_pick(
-                self.data.shape[1],
-                max(self.offsets) // _LANES + 2,
-                len(self.offsets),
-                self.data.dtype.itemsize,
-                k,
-            )
-            is not None
-        )
-
-    def matmat_interleaved(self, XI, interpret=False):
+    def matmat_interleaved(self, XI):
         """Multi-RHS apply on INTERLEAVED panels (k*S, 128) -> (k*S, 128)
-        (see :meth:`DIAMatrix.matmat_interleaved`): the fastest multi-RHS
-        path — HALF the diagonal stream of full storage, fetched once for
-        all k panels, with the SpMV kernel's contiguous-block grid step."""
-        n = self.n
-        S = self.data.shape[1]
-        k = XI.shape[0] // S
-        use_pallas = (
-            n >= DIAMatrix._PALLAS_MIN_ELEMS
-            and 1 <= k <= 16
-            and XI.dtype in (jnp.float32, jnp.bfloat16)
-            and self.data.dtype in (jnp.float32, jnp.bfloat16)
-        )
-        if use_pallas and not interpret:
-            try:
-                use_pallas = jax.default_backend() == "tpu"
-            except RuntimeError:
-                use_pallas = False
-        if use_pallas:
-            from sigma_tpu.ops.spmv_pallas import (
-                _LANES,
-                _sym_spmm_tile_pick,
-                dia_sym_spmm_interleaved,
-            )
-
-            pick = _sym_spmm_tile_pick(
-                S,
-                max(self.offsets) // _LANES + 2,
-                len(self.offsets),
-                self.data.dtype.itemsize,
-                k,
-            )
-            if pick is not None:
-                return dia_sym_spmm_interleaved(
-                    self.data, XI, self.offsets, n, interpret=interpret
-                )
-        from sigma_tpu.ops.spmv_pallas import (
+        (see :meth:`DIAMatrix.matmat_interleaved`)."""
+        from sigma_tpu.matrix.panels import (
             deinterleave_panels,
             interleave_panels,
         )
 
+        n = self.n
+        k = XI.shape[0] // self.data.shape[1]
         XT = deinterleave_panels(XI, k, n)
         return interleave_panels(self.matmat(XT.T).T, n)
 
     def matmat(self, X):
-        Y = self._pallas_spmm_path(X.T)
-        if Y is not None:
-            return Y.T
         n = self.n
         k = X.shape[1]
         if len(self.offsets) > DIAMatrix._SCAN_THRESHOLD:
-            # wide-band CPU/f64 path: column-wise scan matvec (O(1)
+            # wide-band path: column-wise scan matvec (O(1)
             # program size, like _matvec_scan)
             return jnp.stack(
                 [self._matvec_scan(X[:, j]) for j in range(k)], axis=1

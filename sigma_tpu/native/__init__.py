@@ -9,7 +9,7 @@ Wired call sites: ``bfs_order``/``greedy_coloring`` (graph/permutations),
 ``triangular_levels`` (solvers/ildu).  ``csr_from_coo`` and
 ``edge_positions`` are bound and tested but intentionally NOT wired: the
 numpy paths (SIMD introsort; vectorized searchsorted/broadcast lookups)
-measured faster on this host class — see BENCHMARKS.md.
+were faster on the hosts tried.
 """
 
 from __future__ import annotations

@@ -3,11 +3,11 @@ device mesh, plus its multilevel preconditioner.
 
 Row-partitions a banded (RCM-reordered) general matrix into equal shard
 blocks; each shard holds its OWN pruned plan (packed active (row-tile x
-diagonal) blocks of its row slab, :mod:`sigma_tpu.ops.spmv_pruned`),
+diagonal) blocks of its row slab, :mod:`sigma_tpu.matrix.pruned_plan`),
 padded to a common step count so one shard_map program serves every
 shard.  The SpMV communication is two nearest-neighbor ``ppermute``
 halo exchanges (the band reach never exceeds a shard), issued before the
-local kernel so XLA overlaps the ICI hop with compute — the same
+local apply so XLA overlaps the halo hop with compute — the same
 halo-before-local ordering as :class:`~sigma_tpu.parallel.dist.
 DistributedDIAMatrix`.
 
@@ -38,6 +38,10 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
+from sigma_tpu.matrix.pruned_plan import (
+    pruned_matvec_reference,
+    pruned_sym_matvec_reference,
+)
 from sigma_tpu.operators.linear_operator import LinearOperator
 from sigma_tpu.parallel.dist import distribute_vector, undistribute_vector
 
@@ -114,7 +118,7 @@ class DistributedPrunedMatrix(LinearOperator):
     tlaneoff: jax.Array = None
     t_halo_E: int = dataclasses.field(metadata=dict(static=True), default=0)
     # symmetric=True: shards pack only their UPPER-triangle (global
-    # c >= r) entries; apply = the symmetric pruned kernel with
+    # c >= r) entries; apply = the symmetric pruned reference with
     # sym_shift=Hw, one forward x-halo ppermute in, one mirror-spill
     # ppermute out (see distribute_pruned(symmetric=True))
     symmetric: bool = dataclasses.field(
@@ -139,7 +143,7 @@ class DistributedPrunedMatrix(LinearOperator):
 
     def astype(self, dtype) -> "DistributedPrunedMatrix":
         """Cast the packed VALUES only (bf16 halves each shard's
-        dominant HBM stream; iterate vectors keep the caller's dtype).
+        dominant value stream; iterate vectors keep the caller's dtype).
         The transpose plan, when present, is cast too so forward and
         transpose applies run at the same precision."""
         return dataclasses.replace(
@@ -148,19 +152,9 @@ class DistributedPrunedMatrix(LinearOperator):
             tdata=None if self.tdata is None else self.tdata.astype(dtype),
         )
 
-    def _use_kernel(self, xdt) -> bool:
-        if jnp.dtype(xdt) not in (jnp.float32, jnp.bfloat16):
-            return False
-        if jnp.dtype(self.dtype) not in (jnp.float32, jnp.bfloat16):
-            return False
-        try:
-            return jax.default_backend() == "tpu"
-        except RuntimeError:
-            return False
-
     def _matvec_sym(self, x: jax.Array) -> jax.Array:
         """Symmetric-storage distributed SpMV: each shard applies its
-        upper-triangle pruned plan with the in-kernel mirror pass
+        upper-triangle pruned plan with the mirror pass
         (``sym_shift=Hw``), then ships the mirror SPILL (contributions
         past its last row) to the NEXT shard on the ring — upper
         storage reads only the FORWARD x halo, so the two x-halo hops
@@ -175,29 +169,15 @@ class DistributedPrunedMatrix(LinearOperator):
         kw = dict(
             T=T, E=E, C=C, n=blk, m=blk + 2 * Hw, sym_shift=Hw,
         )
-        use_kernel = self._use_kernel(x.dtype)
 
         def local(x_local, data, tile, first, ro, lo_):
             left, right = _exchange_halos(
                 x_local, Hw, D, self.axis, forward_only=True
             )
             x_ext = jnp.concatenate([left, x_local, right])
-            if use_kernel:
-                from sigma_tpu.ops.spmv_pruned import (
-                    dia_sym_spmv_pallas_pruned,
-                )
-
-                y, spill = dia_sym_spmv_pallas_pruned(
-                    data, x_ext, tile, first, ro, lo_, **kw
-                )
-            else:
-                from sigma_tpu.ops.spmv_pruned import (
-                    pruned_sym_matvec_reference,
-                )
-
-                y, spill = pruned_sym_matvec_reference(
-                    data, x_ext, tile, ro, lo_, with_spill=True, **kw
-                )
+            y, spill = pruned_sym_matvec_reference(
+                data, x_ext, tile, ro, lo_, with_spill=True, **kw
+            )
             if D > 1:
                 # mirror contributions to the NEXT shard's head rows
                 # (EL <= T*128 <= block always)
@@ -212,7 +192,6 @@ class DistributedPrunedMatrix(LinearOperator):
                 P(self.axis), P(self.axis),
             ),
             out_specs=P(self.axis),
-            check_vma=not use_kernel,
         )
         return f(
             x, self.data, self.tile, self.first, self.rowoff, self.laneoff
@@ -225,38 +204,20 @@ class DistributedPrunedMatrix(LinearOperator):
         C, T = self.data.shape[1], self.data.shape[2]
         E = self.halo_E
         EL = E * _LANES
-        k = X.shape[1]
         kw = dict(
             T=T, E=E, C=C, n=blk, m=blk + 2 * Hw, sym_shift=Hw,
         )
-        use_kernel = self._use_kernel(X.dtype)
 
         def local(X_local, data, tile, first, ro, lo_):
             left, right = _exchange_halos(
                 X_local, Hw, D, self.axis, forward_only=True
             )
             XT = jnp.concatenate([left, X_local, right], axis=0).T
-            if use_kernel:
-                from sigma_tpu.ops.spmv_pruned import (
-                    dia_sym_spmm_pruned_rhs_major,
+            Y, spill = jax.vmap(
+                lambda xt: pruned_sym_matvec_reference(
+                    data, xt, tile, ro, lo_, with_spill=True, **kw
                 )
-
-                Y, spill = dia_sym_spmm_pruned_rhs_major(
-                    data, XT, tile, first, ro, lo_, **kw
-                )
-            else:
-                from sigma_tpu.ops.spmv_pruned import (
-                    pruned_sym_matvec_reference,
-                )
-
-                outs = [
-                    pruned_sym_matvec_reference(
-                        data, XT[j], tile, ro, lo_, with_spill=True, **kw
-                    )
-                    for j in range(k)
-                ]
-                Y = jnp.stack([o[0] for o in outs], axis=0)
-                spill = jnp.stack([o[1] for o in outs], axis=0)
+            )(XT)
             if D > 1:
                 Y = Y.at[:, :EL].add(_ship_forward(spill, D, self.axis))
             return Y.T
@@ -269,7 +230,6 @@ class DistributedPrunedMatrix(LinearOperator):
                 P(self.axis), P(self.axis),
             ),
             out_specs=P(self.axis),
-            check_vma=not use_kernel,
         )
         return f(
             X, self.data, self.tile, self.first, self.rowoff, self.laneoff
@@ -285,21 +245,12 @@ class DistributedPrunedMatrix(LinearOperator):
             T=T, E=self.halo_E, C=C, n=self.block,
             m=self.block + 2 * Hw,
         )
-        use_kernel = self._use_kernel(x.dtype)
 
         def local(x_local, data, tile, first, ro, lo_):
             # nearest-neighbor halos FIRST (no dependency on the local
-            # FMA work -> XLA overlaps the ICI hop with ring-0 compute)
+            # work -> XLA overlaps the halo hop with the local compute)
             left, right = _exchange_halos(x_local, Hw, D, self.axis)
             x_ext = jnp.concatenate([left, x_local, right])
-            if use_kernel:
-                from sigma_tpu.ops.spmv_pruned import dia_spmv_pallas_pruned
-
-                return dia_spmv_pallas_pruned(
-                    data, x_ext, tile, first, ro, lo_, **kw
-                )
-            from sigma_tpu.ops.spmv_pruned import pruned_matvec_reference
-
             return pruned_matvec_reference(data, x_ext, tile, ro, lo_, **kw)
 
         f = shard_map(
@@ -310,7 +261,6 @@ class DistributedPrunedMatrix(LinearOperator):
                 P(self.axis), P(self.axis),
             ),
             out_specs=P(self.axis),
-            check_vma=not use_kernel,
         )
         return f(
             x, self.data, self.tile, self.first, self.rowoff, self.laneoff
@@ -327,31 +277,19 @@ class DistributedPrunedMatrix(LinearOperator):
         D = self.n_shards
         Hw = self.halo_words
         C, T = self.data.shape[1], self.data.shape[2]
-        k = X.shape[1]
         kw = dict(
             T=T, E=self.halo_E, C=C, n=self.block,
             m=self.block + 2 * Hw,
         )
-        use_kernel = self._use_kernel(X.dtype)
 
         def local(X_local, data, tile, first, ro, lo_):
             left, right = _exchange_halos(X_local, Hw, D, self.axis)
             XT = jnp.concatenate([left, X_local, right], axis=0).T
-            if use_kernel:
-                from sigma_tpu.ops.spmv_pruned import (
-                    dia_spmm_pruned_rhs_major,
+            return jax.vmap(
+                lambda xt: pruned_matvec_reference(
+                    data, xt, tile, ro, lo_, **kw
                 )
-
-                return dia_spmm_pruned_rhs_major(
-                    data, XT, tile, first, ro, lo_, **kw
-                ).T
-            from sigma_tpu.ops.spmv_pruned import pruned_matvec_reference
-
-            cols = [
-                pruned_matvec_reference(data, XT[j], tile, ro, lo_, **kw)
-                for j in range(k)
-            ]
-            return jnp.stack(cols, axis=1)
+            )(XT).T
 
         f = shard_map(
             local,
@@ -361,7 +299,6 @@ class DistributedPrunedMatrix(LinearOperator):
                 P(self.axis), P(self.axis),
             ),
             out_specs=P(self.axis),
-            check_vma=not use_kernel,
         )
         return f(
             X, self.data, self.tile, self.first, self.rowoff, self.laneoff
@@ -390,22 +327,9 @@ class DistributedPrunedMatrix(LinearOperator):
         kw = dict(
             T=T, E=self.t_halo_E, C=C, n=blk + 2 * Hw, m=blk,
         )
-        use_kernel = self._use_kernel(x.dtype)
 
         def local(x_local, data, tile, first, ro, lo_):
-            if use_kernel:
-                from sigma_tpu.ops.spmv_pruned import dia_spmv_pallas_pruned
-
-                z = dia_spmv_pallas_pruned(
-                    data, x_local, tile, first, ro, lo_, **kw
-                )
-            else:
-                from sigma_tpu.ops.spmv_pruned import (
-                    pruned_matvec_reference,
-                )
-
-                z = pruned_matvec_reference(data, x_local, tile, ro, lo_,
-                                            **kw)
+            z = pruned_matvec_reference(data, x_local, tile, ro, lo_, **kw)
             y = z[Hw : Hw + blk]
             if D > 1:
                 # head: contributions to the PREVIOUS shard's tail
@@ -432,7 +356,6 @@ class DistributedPrunedMatrix(LinearOperator):
                 P(self.axis), P(self.axis),
             ),
             out_specs=P(self.axis),
-            check_vma=not use_kernel,
         )
         return f(
             x, self.tdata, self.ttile, self.tfirst, self.trowoff,
@@ -493,13 +416,13 @@ def distribute_pruned(
     plans, enabling :meth:`DistributedPrunedMatrix.rmatvec`.
 
     ``symmetric=True`` packs only the upper triangle per shard (half
-    the per-shard HBM value stream; apply = the symmetric kernel with a
+    the per-shard value stream; apply = the symmetric reference with a
     forward mirror-spill ppermute, see :meth:`DistributedPrunedMatrix.
     _matvec_sym`); pass FULL both-triangle triples — ``validate``
     (default on) checks numeric symmetry on the host, disable it for
     known-symmetric large assemblies.
     """
-    from sigma_tpu.ops.spmv_pruned import build_pruned_plan
+    from sigma_tpu.matrix.pruned_plan import build_pruned_plan
 
     D = mesh.shape[axis]
     rows = np.asarray(rows, dtype=np.int64).ravel()
@@ -513,8 +436,7 @@ def distribute_pruned(
             "symmetric storage needs no transpose plan (rmatvec = matvec)"
         )
     if group is None:
-        # measured defaults: f32 plateaus at group 8; bf16 gains to
-        # 16-24; the symmetric half-sized slot pool optimum is 12
+        # the single-device defaults (PrunedDIAMatrix.from_coo)
         if symmetric:
             group = 12
         else:
@@ -543,7 +465,7 @@ def distribute_pruned(
     tr = min(tile_rows, block)
 
     if symmetric:
-        # the symmetric kernel's cross-shard mirror SPILL is emitted for
+        # the symmetric apply's cross-shard mirror SPILL is emitted for
         # rows past the last TILE, so tiles must align with the shard
         # block exactly (G*T*128 == block) — otherwise mirror
         # contributions landing between block and the tile end would be

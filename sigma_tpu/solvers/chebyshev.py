@@ -1,7 +1,7 @@
 """Chebyshev polynomial smoother / preconditioner.
 
 No reference analogue (named extension).  Why it earns a place in a
-TPU/distributed framework: one application is ``degree - 1`` SpMVs and
+accelerator/distributed framework: one application is ``degree - 1`` SpMVs and
 axpys with **zero inner products** — so on a sharded operator it runs with zero
 ``psum`` collectives, unlike a nested CG preconditioner.  That makes it the
 standard smoother choice for distributed multigrid and a latency-free
@@ -110,9 +110,9 @@ def chebyshev(
     """Build a Chebyshev smoother for A.
 
     Defaults: ``lmax`` is the GERSHGORIN bound when the operator
-    exposes its triples (``entries()``) — the project's measured law
-    (CLAUDE.md round 2: a power-iteration UNDERESTIMATE diverges the
-    smoother, since modes above the interval are amplified) — with
+    exposes its triples (``entries()``) — a power-iteration
+    UNDERESTIMATE diverges the smoother, since modes above the interval
+    are amplified — with
     power iteration at a widened 1.25 safety margin only as the
     fallback for matvec-only operators; ``lmin = smoothing_fraction *
     lmax`` (the multigrid smoothing convention).  Pass explicit bounds

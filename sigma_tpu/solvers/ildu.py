@@ -10,7 +10,7 @@ Cholesky" (test/solver_test_incomplete_cholesky.f90).
 
 The reference's triangular sweeps are strictly sequential
 (``lower_triangular_solve:208``, ``upper_triangular_solve:243`` — the main
-parallelization obstacle named in SURVEY §3.3).  The TPU-native redesign is
+parallelization obstacle named in SURVEY §3.3).  The data-parallel redesign is
 **level scheduling**: rows are grouped into dependency levels of the
 triangular DAG (for a multicolor-ordered matrix, levels = colors — the
 reference's own intended remedy, ``permutations.f90:6-8``); each level is one
@@ -21,11 +21,11 @@ iteration.
 Factorization (numeric ILU(0) on the static pattern, mirroring
 ``sparse_static_pattern_ldu_factorization:275``) runs on host at setup time.
 
-TPU ROUTING (measured, benchmarks/ildu3d.py + BENCHMARKS.md "ILDU on
-TPU"): at 1M rows of 3-D Poisson the level-scheduled apply costs 164 ms
-(~250 SpMVs of latency-bound level stepping) — ILDU(0) wins the
-iteration count (6 vs 8-9) and loses the wall clock ~60x to Chebyshev
-and ~14x to structured GMG.  On TPU at scale prefer
+ROUTING: the level-scheduled apply steps through every dependency level
+(hundreds at 1M rows of 3-D Poisson), each a latency-bound gather/scatter
+step, so ILDU(0) wins the iteration count but can lose the wall clock to
+Chebyshev and structured GMG (benchmarks/ildu3d.py measures it).  At scale
+prefer
 :func:`sigma_tpu.solvers.chebyshev` or
 :func:`sigma_tpu.solvers.structured_pair_amg`; this module is the right
 tool on CPU, at small n, and as the shard-local factorization inside

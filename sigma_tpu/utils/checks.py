@@ -1,4 +1,4 @@
-"""Numerical-safety instrumentation: the TPU-native analogue of the
+"""Numerical-safety instrumentation: the device-side analogue of the
 reference's debug builds.
 
 The reference's only sanitizers are compiler flags (``-fbounds-check``,

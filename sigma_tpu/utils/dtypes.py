@@ -1,9 +1,10 @@
 """Dtype policy helpers.
 
-The reference library (SiGMA) is double-precision Fortran throughout.  On TPU
-the sweet spot is float32 (HBM-bandwidth-bound SpMV) with float64 available on
-CPU (``jax_enable_x64``) for the reference's 1e-14-tolerance test problems.
-Everything in sigma_tpu is dtype-generic; these helpers only pick defaults.
+The reference library (SiGMA) is double-precision Fortran throughout.  On the
+device the default is float32 (bandwidth-bound SpMV); float64 is available
+under ``jax_enable_x64`` (the CPU tests run the reference's 1e-14-tolerance
+problems in it).  Everything in sigma_tpu is dtype-generic; these helpers
+only pick defaults.
 """
 
 from __future__ import annotations
@@ -11,13 +12,14 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
-# Index dtype: int32 everywhere (TPU-native word size; SMEM scalars are i32).
+# Index dtype: int32 everywhere (half the index bytes of int64).
 index_dtype = jnp.int32
 
 
 def default_real_dtype():
-    """float64 when x64 is enabled (CPU test runs), else float32 (TPU)."""
+    """float64 when x64 is enabled (CPU test runs), else float32."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
@@ -32,3 +34,11 @@ def round_up(x: int, m: int) -> int:
 
 def np_index(x) -> np.ndarray:
     return np.asarray(x, dtype=np.int32)
+
+
+def hmatmul(a, b):
+    """``a @ b`` at ``Precision.HIGHEST``.  A float32 product at the default
+    precision may run in TF32 on the GPU (about three decimal digits), which
+    is too coarse for Krylov and eigensolver panel algebra: Gram matrices,
+    Gram-Schmidt projections and basis combinations."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)

@@ -11,13 +11,28 @@
 
 from __future__ import annotations
 
+import os
 import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["order", "determinant", "init_seed"]
+__all__ = ["order", "determinant", "init_seed", "configure_compile_cache"]
+
+
+def configure_compile_cache(default_dir: str) -> str:
+    """Point JAX's persistent compilation cache at one fixed directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    nothing is set here.  Otherwise the cache goes to ``default_dir``, a
+    fixed path (part of each entry's key: a path that moves never hits).
+    Returns the directory in use."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", default_dir)
+    return default_dir
 
 
 def order(x) -> np.ndarray:
@@ -37,50 +52,3 @@ def init_seed(seed: int | None = None) -> jax.Array:
     if seed is None:
         seed = time.time_ns() % (2**31)
     return jax.random.PRNGKey(int(seed))
-
-
-def enable_transparent_hugepages() -> bool:
-    """Best-effort THP=always for host-side numpy performance.
-
-    On Firecracker-style VMs with on-demand memory, first-touch page
-    faults on fresh large allocations dominate host numpy work (glibc
-    always mmap-allocates buffers > 32 MiB, so every temporary re-faults
-    its pages; measured ~30 MB/s at 4 KiB pages on this stack, 5.4x
-    faster with 2 MiB pages).  Benchmarks and the test harness call this;
-    the library itself stays side-effect-free.  Returns True when THP
-    was enabled (or already on)."""
-    path = "/sys/kernel/mm/transparent_hugepage/enabled"
-    try:
-        with open(path) as f:
-            if "[always]" in f.read():
-                return True
-        with open(path, "w") as f:
-            f.write("always")
-        with open(path) as f:
-            return "[always]" in f.read()
-    except OSError:
-        return False
-
-
-def enable_warm_heap() -> bool:
-    """Keep large host allocations on the brk heap instead of fresh mmaps.
-
-    glibc mmap-allocates buffers past the (dynamic, <= 32 MiB) threshold
-    and returns them to the OS on free, so every fresh large numpy
-    temporary re-faults its pages — the same page-fault wall
-    :func:`enable_transparent_hugepages` mitigates.  Raising
-    ``M_MMAP_THRESHOLD`` and ``M_TRIM_THRESHOLD`` keeps freed memory in
-    the process, so repeated temporaries of similar size reuse warm pages
-    (measured 1.3-1.7x on allocation-heavy host setup, benchmarks/
-    heap_probe.py).  Trades higher steady RSS for that reuse — opt-in,
-    called by bench/conftest like the THP helper; the library itself
-    stays side-effect-free.  Returns True when the knobs were applied."""
-    import ctypes
-
-    try:
-        libc = ctypes.CDLL("libc.so.6", use_errno=True)
-        ok1 = libc.mallopt(-3, 1 << 30)  # M_MMAP_THRESHOLD
-        ok2 = libc.mallopt(-1, 1 << 30)  # M_TRIM_THRESHOLD
-        return bool(ok1) and bool(ok2)
-    except OSError:
-        return False

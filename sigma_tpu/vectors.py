@@ -6,7 +6,7 @@ vector over multiple physical fields (e.g. velocity components on a grid)
 can be addressed either flat or by (field, index)
 (``vec_get_value_multi_index:92``).
 
-TPU-native redesign: :class:`BlockVector` is a frozen pytree of one flat
+Pytree redesign: :class:`BlockVector` is a frozen pytree of one flat
 ``jax.Array`` plus *static* field offsets.  Field views are zero-copy
 slices; all mutators are functional.  The flat layout is exactly what the
 solvers and the distributed layer consume, so a BlockVector drops into

@@ -1,8 +1,11 @@
 """Test configuration: force an 8-device virtual CPU platform + float64.
 
 The reference test suite asserts 1e-14 tolerances (double precision); we run
-tests on CPU with ``jax_enable_x64`` and 8 virtual devices so multi-chip
-sharding paths are exercised without TPU hardware, per the driver contract.
+tests on CPU with ``jax_enable_x64`` and 8 virtual devices so multi-device
+sharding paths are exercised without accelerator hardware (JAX_PLATFORMS,
+when set, picks the platform instead).  Tests that need a GPU carry the
+``gpu`` marker and take the ``gpu`` fixture, which skips them when JAX
+finds none (decided at run time, never at import).
 """
 
 import os
@@ -16,15 +19,19 @@ if "xla_force_host_platform_device_count" not in _flags:
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+if not os.environ.get("JAX_PLATFORMS"):
+    jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 # The suite is compile-dominated (hundreds of jitted solver/shard_map
 # graphs on tiny operands).  A persistent on-disk compile cache makes
 # repeat runs load instead of recompile; entries are keyed by HLO hash,
 # so code changes invalidate exactly the affected programs.
-_cache = os.path.join(os.path.dirname(__file__), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _cache)
+from sigma_tpu.utils.util import configure_compile_cache  # noqa: E402
+
+configure_compile_cache(
+    os.path.join(os.path.dirname(os.path.dirname(__file__)), ".jax_cache")
+)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
@@ -37,8 +44,13 @@ def rng():
     return np.random.default_rng(0)
 
 
-def pytest_configure(config):
-    config.addinivalue_line("markers", "slow: long-running test")
+@pytest.fixture
+def gpu():
+    """The first GPU device; skips the test when JAX finds none."""
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        pytest.skip(f"needs a GPU (JAX platform {devices[0].platform!r})")
+    return devices[0]
 
 
 def laplacian_2d(nx: int) -> np.ndarray:
@@ -54,14 +66,3 @@ def laplacian_2d(nx: int) -> np.ndarray:
         d[s, t] = -1
         d[t, s] = -1
     return d
-
-
-# host numpy on this VM is page-fault-bound for fresh large allocations;
-# 2 MiB pages are ~5x faster (see sigma_tpu.utils.util)
-try:
-    from sigma_tpu.utils.util import enable_transparent_hugepages, enable_warm_heap
-
-    enable_transparent_hugepages()
-    enable_warm_heap()
-except Exception:
-    pass

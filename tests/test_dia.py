@@ -1,4 +1,4 @@
-"""DIA (diagonal) format tests — the TPU-native gather-free stencil layout.
+"""DIA (diagonal) format tests — the gather-free stencil layout.
 
 No reference analogue (README.md:81-87 lists missing formats); correctness
 is pinned the reference way: dense-mirror oracles over random shapes plus
@@ -205,37 +205,6 @@ def test_astype_exact_bf16(rng):
         DIAMatrix.from_dense(dense).astype(jnp.float32).astype_exact(jnp.bfloat16)
 
 
-def test_transposed_data_layout(rng):
-    """The transpose DIA layout (feeds the blocked pallas rmatvec on TPU):
-    a DIAMatrix rebuilt from (dataT, offsetsT) must BE A^T."""
-    import jax.numpy as jnp
-    from sigma_tpu import DIAMatrix
-    from sigma_tpu.graph.graph import DIAGraph
-
-    n = 400
-    dense = np.zeros((n, n))
-    for o in (0, 1, -2, 135, -260):
-        lo, hi = max(0, -o), min(n, n - o)
-        idx = np.arange(lo, hi)
-        dense[idx, idx + o] = rng.standard_normal(hi - lo)
-    A = DIAMatrix.from_dense(dense)
-    dataT, offsT = A._transposed_data()
-    rowsT, colsT = [], []
-    for o in offsT:
-        lo, hi = max(0, -o), min(n, n - o)
-        rowsT.append(np.arange(lo, hi))
-        colsT.append(np.arange(lo, hi) + o)
-    g = DIAGraph(offsets=offsT, shape=(n, n), nnz=A.graph.nnz)
-    AT = DIAMatrix(graph=g, data=dataT)
-    np.testing.assert_allclose(AT.to_dense(), dense.T, atol=1e-14)
-    x = rng.standard_normal(n)
-    np.testing.assert_allclose(
-        np.asarray(AT.matvec(jnp.asarray(x))),
-        np.asarray(A.rmatvec(jnp.asarray(x))),
-        atol=1e-12,
-    )
-
-
 def test_symmetric_dia(rng):
     """Symmetric DIA storage (the reference's named-missing symmetric
     optimization): half the diagonals, identical operator action."""
@@ -298,53 +267,3 @@ def test_bench_analytic_dia_matches_coo():
     n2, offs, data, nnz = laplacian_3d_dia(nx, dtype=np.float64)
     assert n2 == n and offs == A.graph.offsets and nnz == r.size
     np.testing.assert_array_equal(np.asarray(A.data2d), data)
-
-
-def test_why_not_pallas_probe(monkeypatch):
-    """The documented gate-audit probe: silent fast-path fallbacks become
-    inspectable reasons (VERDICT r02 #7)."""
-    import jax
-
-    from sigma_tpu import DIAMatrix
-
-    n = 70_000
-    r = np.arange(n)
-    A = DIAMatrix.from_coo(
-        n, n, np.concatenate([r, r[:-1]]), np.concatenate([r, r[:-1] + 1]),
-        np.ones(2 * n - 1), dtype=jnp.float32,
-    )
-    # on CPU the first reason is the backend
-    assert "backend" in A.why_not_pallas()
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert A.why_not_pallas("matvec") is None
-    assert A.why_not_pallas("matmat", k=8) is None
-    # matmat auto-splits wide RHS blocks into 16-wide passes (r03)
-    assert A.why_not_pallas("matmat", k=32) is None
-    assert "k=32" in A.why_not_pallas("interleaved", k=32)
-    assert "float" in A.why_not_pallas("matvec", dtype=jnp.float64)
-
-    small = DIAMatrix.from_coo(
-        256, 256, np.arange(256), np.arange(256), np.ones(256),
-        dtype=jnp.float32,
-    )
-    assert "below this" in small.why_not_pallas()
-
-    rect = DIAMatrix.from_coo(
-        2 * n, n, np.arange(n), np.arange(n),
-        np.ones(n), dtype=jnp.float32,
-    )
-    assert "rectangular" in rect.why_not_pallas("rmatvec")
-
-    # wide band: matvec engages via the chunked path; SpMM does not
-    offs_rows = np.repeat(np.arange(300), 1)
-    wide_r = np.concatenate([np.full(64, i) for i in range(300)])
-    wide_c = (wide_r * 211 + np.tile(np.arange(64), 300)) % n
-    W = DIAMatrix.from_coo(n, n, wide_r, wide_c, np.ones(wide_r.size),
-                           dtype=jnp.float32)
-    if W.graph.n_diags > 200:
-        assert W.why_not_pallas("matvec") is None  # chunk plan engages
-        assert W.why_not_pallas("matmat", k=8) is None  # chunked SpMM too
-        assert "not fit" in (W.why_not_pallas("matmat", k=16) or "") or (
-            W.why_not_pallas("matmat", k=16) is None
-        )

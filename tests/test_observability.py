@@ -66,7 +66,7 @@ def test_row_col_accessors(rng):
 def test_spmv_throughput_positive(rng):
     d = spd(rng, 256)
     A = CSRMatrix.from_dense(d)
-    rate = spmv_throughput(A, k1=2, k2=10)
+    rate = spmv_throughput(A, iters=4)
     assert rate > 0
 
 

@@ -562,9 +562,8 @@ def test_distributed_cgls_rectangular(mesh, rng):
 
 def test_distributed_wide_band_matvec(mesh, rng):
     """Wide-band (RCM-banded general sparsity) DistributedDIAMatrix: >24
-    ring-0 terms — on TPU these route through the chunked blocked kernel
-    inside shard_map (validated on hardware, BENCHMARKS.md); on CPU the
-    windowed XLA path must produce the same dense-oracle result."""
+    ring-0 terms through the windowed XLA path must match the dense
+    oracle."""
     from sigma_tpu.parallel import distribute_matrix_dia
 
     n = 512

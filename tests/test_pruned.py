@@ -2,10 +2,8 @@
 
 Oracle style follows the reference's dense-mirror pattern
 (``test/matrix_test_basics.f90``): build random banded-with-outliers
-matrices, mirror them densely, and check every public operation.  The
-pallas kernel runs in interpret mode here (Mosaic lowering is exercised
-on TPU by benchmarks/pruned_sweep.py); the gather reference path is the
-CPU/odd-dtype fallback and is tested in f64.
+matrices, mirror them densely, and check every public operation, in f64
+and in f32 through the gather apply every backend runs.
 """
 
 import numpy as np
@@ -15,9 +13,9 @@ import pytest
 
 from sigma_tpu.matrix.formats import DIAMatrix
 from sigma_tpu.matrix.pruned import PrunedDIAMatrix
-from sigma_tpu.ops.spmv_pruned import (
+from sigma_tpu.matrix.pruned_plan import (
     build_pruned_plan,
-    dia_spmv_pallas_pruned,
+    pruned_matvec_reference,
 )
 
 
@@ -63,24 +61,37 @@ def test_rectangular_and_unaligned(rng):
     assert np.abs(Y - dense @ X).max() < 1e-10 * np.abs(dense @ X).max()
 
 
-def test_pallas_kernel_interpret_matches_dense(rng):
-    n = 4000
-    rows, cols, vals, dense = _random_banded(rng, n, n, 30000, band=200,
+@pytest.mark.parametrize(
+    "n,m,band,tile_rows,group",
+    [
+        (4000, 4000, 200, 1024, 8),
+        (4000, 4000, 200, 2048, 1),
+        (3333, 3333, 90, 1024, 5),
+        (2500, 3100, 300, 1024, 3),
+        (3100, 2500, 150, 2048, 4),
+        (1500, 1500, 1400, 1024, 2),
+    ],
+)
+def test_pruned_reference_f32_grid(rng, n, m, band, tile_rows, group):
+    """The plan + gather reference against the dense oracle in f32:
+    square, rectangular both ways, unaligned n, and a band wider than one
+    tile (the halo-widening branch of build_pruned_plan)."""
+    rows, cols, vals, dense = _random_banded(rng, n, m, 30000, band=band,
                                              outliers=0)
     vals32 = vals.astype(np.float32)
-    dense32 = dense.astype(np.float32)
-    plan = build_pruned_plan(n, n, rows, cols, vals32, tile_rows=1024,
-                             group=8, dtype=np.float32)
+    plan = build_pruned_plan(n, m, rows, cols, vals32, tile_rows=tile_rows,
+                             group=group, dtype=np.float32)
     data = jnp.asarray(plan.data.reshape(plan.L, plan.C, plan.T, 128))
-    x = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(dia_spmv_pallas_pruned(
+    x = rng.standard_normal(m).astype(np.float32)
+    y = np.asarray(pruned_matvec_reference(
         data, jnp.asarray(x), jnp.asarray(plan.tile),
-        jnp.asarray(plan.first), jnp.asarray(plan.rowoff),
-        jnp.asarray(plan.laneoff),
-        T=plan.T, E=plan.E, C=plan.C, n=n, m=n, interpret=True,
+        jnp.asarray(plan.rowoff), jnp.asarray(plan.laneoff),
+        T=plan.T, E=plan.E, C=plan.C, n=n, m=m,
     ))
-    ref = dense32 @ x
+    ref = dense.astype(np.float32) @ x
+    assert y.shape == (n,)
     assert np.abs(y - ref).max() < 1e-5 * np.abs(ref).max()
+    assert plan.n_slots_active <= plan.L * plan.C
 
 
 def test_parity_with_diamatrix_and_from_dia(rng):
@@ -144,25 +155,8 @@ def test_solver_integration_cg(rng):
     assert np.abs(np.asarray(x) - xstar).max() < 1e-9
 
 
-def test_why_not_pallas_reasons(rng):
-    n = 500
-    rows, cols, vals, _ = _random_banded(rng, n, n, 2000)
-    A = PrunedDIAMatrix.from_coo(n, n, rows, cols, vals)
-    assert "gather reference" in A.why_not_pallas()
-    assert "matvec and matmat" in A.why_not_pallas(op="rmatvec")
-    big = PrunedDIAMatrix.from_coo(
-        70000, 70000, np.arange(70000), np.arange(70000), np.ones(70000)
-    )
-    reason = big.why_not_pallas(dtype=jnp.float32)
-    if jax.default_backend() != "tpu":
-        assert reason is not None  # backend gate
-    assert "f32/bf16" in big.why_not_pallas(dtype=jnp.float64)
-
-
-def test_pruned_spmm_interpret_and_reference(rng):
-    # RHS-major multi-vector kernel (interpret mode) + matmat routing
-    from sigma_tpu.ops.spmv_pruned import dia_spmm_pruned_rhs_major
-
+def test_pruned_spmm_rhs_major(rng):
+    # RHS-major multi-vector apply (vmap over the reference) + matmat
     n = 3000
     rows, cols, vals, dense = _random_banded_pair(rng, n)
     vals32 = vals.astype(np.float32)
@@ -171,14 +165,10 @@ def test_pruned_spmm_interpret_and_reference(rng):
     )
     k = 3
     XT = rng.standard_normal((k, n)).astype(np.float32)
-    Y = np.asarray(dia_spmm_pruned_rhs_major(
-        plan_mat.data, jnp.asarray(XT), plan_mat.tile, plan_mat.first,
-        plan_mat.rowoff, plan_mat.laneoff,
-        **plan_mat._kernel_kwargs(), interpret=True,
-    ))
+    Y = np.asarray(plan_mat.matmat_rhs_major(jnp.asarray(XT)))
     ref = XT @ dense.astype(np.float32).T
     assert np.abs(Y - ref).max() < 1e-4 * max(np.abs(ref).max(), 1.0)
-    # matmat (fallback stack path on CPU) matches the dense oracle
+    # matmat matches the dense oracle
     X = rng.standard_normal((n, 2))
     A64 = PrunedDIAMatrix.from_coo(n, n, rows, cols, vals, tile_rows=1024)
     Y2 = np.asarray(A64.matmat(jnp.asarray(X)))
@@ -626,13 +616,10 @@ def test_sym_pruned_validation_raises(rng):
         SymmetricPrunedDIAMatrix.from_coo(n, n + 128, r, c, v)
 
 
-def test_sym_pruned_kernel_interpret_matches_dense(rng):
-    # Mosaic-shaped path (interpret mode): matvec + spmm, f32
+def test_sym_pruned_f32_matches_dense(rng):
+    # f32 matvec + spmm; the spill of a whole square matrix is zero
     from sigma_tpu.matrix.pruned import SymmetricPrunedDIAMatrix
-    from sigma_tpu.ops.spmv_pruned import (
-        dia_sym_spmm_pruned_rhs_major,
-        dia_sym_spmv_pallas_pruned,
-    )
+    from sigma_tpu.matrix.pruned_plan import pruned_sym_matvec_reference
 
     n = 4000
     r, c, v, dense = _random_sym(rng, n, 18000, band=200)
@@ -642,30 +629,24 @@ def test_sym_pruned_kernel_interpret_matches_dense(rng):
     )
     dense32 = dense.astype(np.float32)
     x = rng.standard_normal(n).astype(np.float32)
-    y, spill = dia_sym_spmv_pallas_pruned(
-        A.data, jnp.asarray(x), A.tile, A.first, A.rowoff, A.laneoff,
-        **A._kernel_kwargs(), interpret=True,
+    y = A.matvec(jnp.asarray(x))
+    _, spill = pruned_sym_matvec_reference(
+        A.data, jnp.asarray(x), A.tile, A.rowoff, A.laneoff,
+        with_spill=True, **A._plan_kwargs(),
     )
     ref = dense32 @ x
     assert np.abs(np.asarray(y) - ref).max() < 1e-5 * np.abs(ref).max()
     assert np.abs(np.asarray(spill)).max() == 0.0  # whole square matrix
     XT = rng.standard_normal((3, n)).astype(np.float32)
-    Y, _sp = dia_sym_spmm_pruned_rhs_major(
-        A.data, jnp.asarray(XT), A.tile, A.first, A.rowoff, A.laneoff,
-        **A._kernel_kwargs(), interpret=True,
-    )
+    Y = A.matmat_rhs_major(jnp.asarray(XT))
     Yref = XT @ dense32.T
     assert np.abs(np.asarray(Y) - Yref).max() < 1e-5 * np.abs(Yref).max()
 
 
-def test_sym_pruned_kernel_interpret_sym_shift(rng):
+def test_sym_pruned_reference_sym_shift(rng):
     # the distributed rectangular form: local block (blk, blk + 2*Hw)
     # with sym_shift=Hw; spill carries the mirror rows past blk
-    from sigma_tpu.ops.spmv_pruned import (
-        build_pruned_plan,
-        dia_sym_spmv_pallas_pruned,
-        pruned_sym_matvec_reference,
-    )
+    from sigma_tpu.matrix.pruned_plan import pruned_sym_matvec_reference
 
     blk, Hw = 2048, 256
     n_up = 6000
@@ -684,11 +665,6 @@ def test_sym_pruned_kernel_interpret_sym_shift(rng):
     data = jnp.asarray(plan.data.reshape(plan.L, plan.C, plan.T, 128))
     x = rng2.standard_normal(m).astype(np.float32)
     kw = dict(T=plan.T, E=plan.E, C=plan.C, n=blk, m=m, sym_shift=Hw)
-    y, spill = dia_sym_spmv_pallas_pruned(
-        data, jnp.asarray(x), jnp.asarray(plan.tile),
-        jnp.asarray(plan.first), jnp.asarray(plan.rowoff),
-        jnp.asarray(plan.laneoff), **kw, interpret=True,
-    )
     yr, spr = pruned_sym_matvec_reference(
         data, jnp.asarray(x), jnp.asarray(plan.tile),
         jnp.asarray(plan.rowoff), jnp.asarray(plan.laneoff),
@@ -700,8 +676,6 @@ def test_sym_pruned_kernel_interpret_sym_shift(rng):
     mir = c > r
     dense[(c[mir]).astype(np.int64), r[mir] + Hw] += v[mir]
     full = dense @ x
-    assert np.abs(np.asarray(y) - full[:blk]).max() < 1e-4
-    assert np.abs(np.asarray(spill) - full[blk:]).max() < 1e-4
     assert np.abs(np.asarray(yr) - full[:blk]).max() < 1e-4
     assert np.abs(np.asarray(spr) - full[blk:]).max() < 1e-4
 

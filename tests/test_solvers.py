@@ -336,8 +336,8 @@ def test_block_cg_preconditioned(rng):
 
 
 def test_block_cg_interleaved_layout_matches_cols(rng):
-    """The interleaved panel layout (the TPU fast path: panels folded
-    into sublanes so every SpMM grid step moves contiguous blocks) must
+    """The interleaved panel layout (panels folded into rows of 128 so
+    the block of vectors is one contiguous array) must
     reproduce the column-major recurrence exactly — same iterate, same
     iteration count — since its Gram/combination algebra is the same
     arithmetic in a different layout."""
@@ -413,7 +413,7 @@ def test_multicolor_ordering_reduces_ildu_levels(rng):
 
 def test_refined_solve_f64_accuracy_from_f32_inner(rng):
     """Mixed-precision iterative refinement: an f32 inner CG reaches the
-    f64 1e-12 tolerance in a few outer sweeps (the TPU-native route to the
+    f64 1e-12 tolerance in a few outer sweeps (the mixed-precision route to the
     reference's double-precision tolerances)."""
     from sigma_tpu.solvers import refined_solve
 
